@@ -1,0 +1,442 @@
+"""OperatorRuntime — the shared batched scoring engine (§7 fast path).
+
+The port of ``repro/core/runtime.py``. Scoring goes through three
+dispatch layers with the JAX package's rules, so a batch takes the same
+layer and the same padded shape in both packages:
+
+  * **lean small-shape dispatch** — below ``small_flops`` useful FLOPs
+    per dispatch the batch is padded only up to a multiple of
+    ``small_quant`` rows;
+  * **bucketed single dispatch** — larger batches are zero-padded to
+    power-of-two buckets (min 64, max ``chunk``);
+  * **stacked superbatch dispatch** — ``ScoreBatcher`` fuses up to
+    ``group_max`` same-(signature, bucket) chunks from *different*
+    queries into one ``(group, bucket, …)`` dispatch, run as one scorer
+    body per group member (the JAX package's "unroll" style; a one-launch
+    grouped kernel is later work).
+
+All three layers run the same ``_scorer_body``: on the card every conv
+layer launches the hand-written kernel (``kernels/conv_scorer.py``),
+whose per-output reduction order does not depend on the row count, so
+padding rows cannot perturb real rows. PyTorch runs eagerly, so there is
+no compilation cache; ``calls`` counts dispatches as in the JAX package.
+Results stay on the device (``ScoreHandle``) until they are consumed:
+PyTorch's launches are asynchronous, and ``.cpu()`` is the
+synchronisation point.
+
+Not ported yet: the device mesh and its sharding, ``TraceGuard`` and the
+trace counters.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.operators import softplus
+from repro_torch.kernels import ops as kops
+
+ArchSig = Tuple[int, int, int, int]
+
+CHUNK = 1024          # frames per dispatch (bounds crop-cache pressure)
+MIN_BUCKET = 64       # smallest padded batch shape (bucketed path)
+# Useful FLOPs per dispatch below which the lean small-shape path runs;
+# the JAX package's default, kept so both packages pick the same layer.
+SMALL_FLOPS = 3e8
+# Small-shape batches are quantized up to a multiple of this (instead of
+# a power of two); 1 disables quantization (exact shapes).
+SMALL_QUANT = 32
+
+
+def arch_signature(arch) -> ArchSig:
+    """Shape-relevant part of an OperatorArch: the input region changes
+    *which pixels* are cropped, not the computation."""
+    return (arch.conv_layers, arch.channels, arch.dense, arch.input_size)
+
+
+def sig_flops(sig: ArchSig) -> float:
+    """Per-frame inference FLOPs of a signature — the cost model of
+    ``OperatorArch.flops`` restated over the signature fields (region
+    variants share it), used to pick a dispatch layer per batch."""
+    layers, channels, dense, size = sig
+    s, c_in, total = size, 3, 0.0
+    for _ in range(layers):
+        total += 2.0 * s * s * channels * 9 * c_in
+        c_in = channels
+        s = max(1, (s + 1) // 2)
+    total += 2.0 * (s * s * c_in) * dense + 2.0 * dense * 2
+    return total
+
+
+def sig_str(sig: ArchSig) -> str:
+    """Stable human-readable key for an arch signature (reports)."""
+    return f"L{sig[0]}c{sig[1]}d{sig[2]}s{sig[3]}"
+
+
+class OperatorRuntime:
+    """Batched operator scoring on one device.
+
+    ``device``: None means the card (``torch.device("cuda")``); where
+    there is none the constructor raises and asks for ``device="cpu"``.
+    On the card the conv layers run the CUDA kernel; on the CPU its plain
+    version. ``small_flops``/``small_quant`` tune the small-shape path.
+    ``calls`` counts dispatches on every path (one fused superbatch = one
+    call), so dispatch numbers are comparable between ``score_crops``
+    and ``ScoreBatcher`` scoring and with the JAX package.
+    """
+
+    def __init__(self, *, device: kops.Device = None, chunk: int = CHUNK,
+                 min_bucket: int = MIN_BUCKET,
+                 small_flops: float = SMALL_FLOPS,
+                 small_quant: int = SMALL_QUANT):
+        self.device = kops.resolve_device(device)
+        self.conv = kops.conv_scorer_fn(self.device)
+        self.chunk = int(chunk)
+        self.min_bucket = int(min_bucket)
+        self.small_flops = float(small_flops)
+        self.small_quant = max(int(small_quant), 1)
+        # sig -> dispatch-shape vocabulary actually used
+        self._shape_vocab: Dict[ArchSig, set] = {}
+        self.calls = 0
+        self.frames_scored = 0       # real (caller-requested) frames
+        self.frames_padded = 0       # zero rows added for shape stability
+        self.small_calls = 0
+        self.bucketed_calls = 0
+        self.super_calls = 0
+
+    # -- the scorer ----------------------------------------------------------
+
+    def _scorer_body(self, params: dict, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The per-batch ``(params, x) -> (probs, counts)`` computation —
+        shared verbatim by all three dispatch layers."""
+        h = x
+        for c in params["convs"]:
+            h = self.conv(h, c["w"], c["b"])
+        h = h.reshape(h.shape[0], -1)
+        h = torch.relu(h @ params["dense"]["w"] + params["dense"]["b"])
+        out = h @ params["head"]["w"] + params["head"]["b"]
+        return torch.sigmoid(out[:, 0]), softplus(out[:, 1])
+
+    def _super_body(self, params: List[dict], x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A ``(group, bucket, …)`` superbatch: one scorer body per group
+        member, with that member's params."""
+        outs = [self._scorer_body(p, x[g]) for g, p in enumerate(params)]
+        return (torch.stack([p for p, _ in outs]),
+                torch.stack([c for _, c in outs]))
+
+    def shape_vocab(self) -> Dict[str, List[tuple]]:
+        """sig-string -> sorted dispatch shapes used so far."""
+        return {sig_str(sig): sorted(shapes)
+                for sig, shapes in self._shape_vocab.items()}
+
+    def dispatch_stats(self) -> Dict[str, int]:
+        """Per-path dispatch accounting for reports."""
+        return {
+            "calls": self.calls,
+            "small_calls": self.small_calls,
+            "bucketed_calls": self.bucketed_calls,
+            "super_calls": self.super_calls,
+            "frames_scored": self.frames_scored,
+            "frames_padded": self.frames_padded,
+        }
+
+    # -- dispatch layers -----------------------------------------------------
+
+    def _bucket(self, n: int) -> int:
+        b = self.min_bucket
+        while b < n:
+            b <<= 1
+        return min(b, self.chunk)
+
+    def is_small(self, sig: ArchSig, n: int) -> bool:
+        """Does a batch of ``n`` frames take the lean small-shape path?
+
+        Judged on the batch's *padded* (quantized) size, not ``n``, as in
+        the JAX package, which keeps the small and bucketed shape
+        vocabularies disjoint. Monotone in ``n`` per signature."""
+        return self._quantize_small(n) * sig_flops(sig) < self.small_flops
+
+    def _quantize_small(self, n: int) -> int:
+        q = self.small_quant
+        return max(1, ((n + q - 1) // q) * q) if n else 0
+
+    def _pad_rows(self, x: np.ndarray, to: int) -> np.ndarray:
+        m = x.shape[0]
+        if m >= to:
+            return x
+        self.frames_padded += to - m
+        return np.concatenate(
+            [x, np.zeros((to - m,) + x.shape[1:], np.float32)])
+
+    def _dispatch(self, sig: ArchSig, params, x: np.ndarray, *, kind: str):
+        """Every dispatch funnels through here: counts calls, records the
+        shape vocabulary, moves the input to the device and runs the
+        layer's body. Returns device tensors (the launches are queued,
+        not finished)."""
+        self.calls += 1
+        if kind == "small":
+            self.small_calls += 1
+        elif kind == "super":
+            self.super_calls += 1
+        else:
+            self.bucketed_calls += 1
+        self._shape_vocab.setdefault(sig, set()).add(tuple(x.shape))
+        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            self.device)
+        with torch.no_grad():
+            if kind == "super":
+                return self._super_body(params, xt)
+            return self._scorer_body(params, xt)
+
+    def _dispatch_chunk(self, sig: ArchSig, params, x: np.ndarray):
+        """One chunk through the lean or bucketed layer (padding as the
+        layer dictates); returns device (probs, counts)."""
+        m = x.shape[0]
+        if self.is_small(sig, m):
+            n = self._quantize_small(m)
+            return self._dispatch(sig, params, self._pad_rows(x, n),
+                                  kind="small")
+        return self._dispatch(sig, params, self._pad_rows(x, self._bucket(m)),
+                              kind="bucketed")
+
+    # -- scoring -------------------------------------------------------------
+
+    def score_crops(self, params: dict, arch, crops
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Score pre-cropped inputs -> (presence_prob, count) as float64
+        numpy. ``calls`` advances once per dispatch (= per chunk)."""
+        x = np.asarray(crops, np.float32)
+        n = x.shape[0]
+        probs = np.empty(n, np.float64)
+        counts = np.empty(n, np.float64)
+        if n == 0:
+            return probs, counts
+        sig = arch_signature(arch)
+        self.frames_scored += n
+        for i in range(0, n, self.chunk):
+            xb = x[i:i + self.chunk]
+            m = xb.shape[0]
+            p, c = _Out(*self._dispatch_chunk(sig, params, xb)).to_np()
+            probs[i:i + m] = p[:m]
+            counts[i:i + m] = c[:m]
+        return probs, counts
+
+    def score(self, trained, bank, idxs) -> Tuple[np.ndarray, np.ndarray]:
+        """Score frame indices of a ``TrainedOp`` via a FrameBank,
+        cropping chunk-by-chunk (keeps peak memory at one chunk)."""
+        batcher = ScoreBatcher(self, group_max=1)
+        handle = batcher.submit(trained, bank, idxs)
+        batcher.flush()
+        return handle.result()
+
+    # -- cross-query demand aggregation ---------------------------------------
+
+    def score_demands(self, demands, *, group_max: int = 8
+                      ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Score many queries' demands with fewer, larger dispatches.
+
+        ``demands``: list of ``(trained, bank, idxs)`` — one per query.
+        Batch facade over ``ScoreBatcher``: submit everything, flush,
+        resolve. Returns ``[(probs, counts)]`` aligned with ``demands``.
+        """
+        batcher = ScoreBatcher(self, group_max=group_max)
+        handles = [batcher.submit(trained, bank, idxs)
+                   for trained, bank, idxs in demands]
+        batcher.flush()
+        return [h.result() for h in handles]
+
+
+# -- fused dispatch + on-device results ---------------------------------------
+
+
+class _Out:
+    """One dispatch's device output; copied to float64 numpy once, on
+    first consumption — the copy waits for the launches, so until then
+    the device works while the host goes on. ``on_consume`` (if given)
+    fires at that first conversion (the ScoreBatcher's in-flight count).
+    """
+
+    __slots__ = ("p", "c", "_np", "_cb")
+
+    def __init__(self, p, c, on_consume: Optional[Callable] = None):
+        self.p, self.c = p, c
+        self._np: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._cb = on_consume
+
+    def to_np(self) -> Tuple[np.ndarray, np.ndarray]:
+        if self._np is None:
+            self._np = (self.p.cpu().numpy().astype(np.float64),
+                        self.c.cpu().numpy().astype(np.float64))
+            self.p = self.c = None          # free the device buffers
+            if self._cb is not None:
+                self._cb()
+                self._cb = None
+        return self._np
+
+
+class ScoreHandle:
+    """Future-like per-demand result. ``result()`` waits for (and
+    converts) the device tensors; everything before that is async."""
+
+    def __init__(self, n: int):
+        self._probs = np.empty(n, np.float64)
+        self._counts = np.empty(n, np.float64)
+        self._parts: List[Tuple[int, int, _Out, Optional[int]]] = []
+        self._chunks = 0          # chunks submitted, incl. undispatched
+        self._done: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+    @property
+    def dispatched(self) -> bool:
+        """All chunks issued to the device (results may still be in
+        flight — that is the point)."""
+        return len(self._parts) == self._chunks
+
+    def _add_part(self, off: int, m: int, out: _Out,
+                  row: Optional[int]) -> None:
+        self._parts.append((off, m, out, row))
+
+    def result(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(probs, counts) float64 numpy, one entry per index."""
+        if self._done is None:
+            if not self.dispatched:
+                raise RuntimeError(
+                    "ScoreHandle.result() before all chunks dispatched; "
+                    "flush the ScoreBatcher first")
+            for off, m, out, row in self._parts:
+                p, c = out.to_np()
+                if row is not None:
+                    p, c = p[row], c[row]
+                self._probs[off:off + m] = p[:m]
+                self._counts[off:off + m] = c[:m]
+            self._parts = []
+            self._done = (self._probs, self._counts)
+        return self._done
+
+
+class ScoreBatcher:
+    """Accumulates score demands and issues fused dispatches eagerly.
+
+    ``submit`` cuts a demand into chunks immediately (host-side crop +
+    pad), sends small chunks straight through the lean layer, and
+    queues bucketed chunks per (signature, bucket). Three watermarks
+    turn queues into dispatches, as in the JAX package:
+
+      * **group_max** — a queue reaching ``group_max`` dispatches
+        immediately as one stacked superbatch;
+      * **bucket complete** — ``fire_complete(possible_sigs)``
+        dispatches the queues whose signature can no longer grow;
+      * **flush** — dispatches every remainder (singles go through the
+        bucketed layer).
+
+    ``in_flight`` counts dispatches whose results have not been
+    consumed yet.
+    """
+
+    def __init__(self, runtime: OperatorRuntime, *, group_max: int = 8):
+        self.rt = runtime
+        self.group_max = max(int(group_max), 1)
+        self._queues: Dict[Tuple[ArchSig, int], List[tuple]] = {}
+        self.eager_dispatches = 0    # issued before flush(), any watermark
+        self.watermark_fires = {"group_max": 0, "bucket_complete": 0}
+        self.in_flight = 0           # dispatched, results not yet consumed
+
+    def pending(self) -> int:
+        """Chunks queued but not yet dispatched."""
+        return sum(len(q) for q in self._queues.values())
+
+    def _out(self, p, c) -> _Out:
+        """Wrap one dispatch's device tensors with in-flight tracking."""
+        self.in_flight += 1
+        return _Out(p, c, on_consume=self._consumed)
+
+    def _consumed(self) -> None:
+        self.in_flight -= 1
+
+    def submit(self, trained, bank, idxs) -> ScoreHandle:
+        """Enqueue one demand; returns its handle (resolve after the
+        batcher is flushed)."""
+        rt = self.rt
+        arch = trained.arch
+        sig = arch_signature(arch)
+        idxs = np.asarray(idxs, np.int64)
+        handle = ScoreHandle(len(idxs))
+        if len(idxs) == 0:
+            return handle
+        rt.frames_scored += len(idxs)
+        for i in range(0, len(idxs), rt.chunk):
+            sel = idxs[i:i + rt.chunk]
+            x = np.asarray(bank.crops(sel, arch.region, arch.input_size),
+                           np.float32)
+            m = x.shape[0]
+            handle._chunks += 1
+            if self.group_max == 1 or rt.is_small(sig, m):
+                p, c = rt._dispatch_chunk(sig, trained.params, x)
+                handle._add_part(i, m, self._out(p, c), None)
+                continue
+            b = rt._bucket(m)
+            q = self._queues.setdefault((sig, b), [])
+            q.append((handle, i, m, trained.params, rt._pad_rows(x, b)))
+            if len(q) >= self.group_max:
+                self._dispatch_group(sig, q)
+                self._queues[(sig, b)] = []
+                self.eager_dispatches += 1
+                self.watermark_fires["group_max"] += 1
+        return handle
+
+    def fire_complete(self, possible_sigs: Optional[Set[ArchSig]]) -> None:
+        """The bucket-complete watermark: dispatch every queue whose
+        signature is *not* in ``possible_sigs``. ``None`` means the
+        caller cannot rule anything out: no-op."""
+        if possible_sigs is None:
+            return
+        for (sig, _b), q in list(self._queues.items()):
+            if q and sig not in possible_sigs:
+                self._dispatch_group(sig, q)
+                self._queues[(sig, _b)] = []
+                self.eager_dispatches += 1
+                self.watermark_fires["bucket_complete"] += 1
+
+    def flush(self) -> None:
+        """Dispatch every queued partial group; afterwards all submitted
+        handles are resolvable."""
+        for (sig, _b), q in self._queues.items():
+            if q:
+                self._dispatch_group(sig, q)
+        self._queues.clear()
+
+    def _dispatch_group(self, sig: ArchSig, group: List[tuple]) -> None:
+        rt = self.rt
+        if len(group) == 1:
+            handle, off, m, params, x = group[0]
+            p, c = rt._dispatch(sig, params, x, kind="bucketed")
+            handle._add_part(off, m, self._out(p, c), None)
+            return
+        xs = np.stack([g[4] for g in group])
+        ps, cs = rt._dispatch(sig, [g[3] for g in group], xs, kind="super")
+        out = self._out(ps, cs)
+        for row, (handle, off, m, _params, _x) in enumerate(group):
+            handle._add_part(off, m, out, row)
+
+
+# -- process-global runtime ---------------------------------------------------
+
+_RUNTIME: Optional[OperatorRuntime] = None
+
+
+def get_runtime() -> OperatorRuntime:
+    """The shared per-process runtime (on the card)."""
+    global _RUNTIME
+    if _RUNTIME is None:
+        _RUNTIME = OperatorRuntime()
+    return _RUNTIME
+
+
+def set_runtime(rt: Optional[OperatorRuntime]) -> Optional[OperatorRuntime]:
+    """Swap the process-global runtime (tests, or ``device="cpu"``);
+    returns the previous one so callers can restore it."""
+    global _RUNTIME
+    prev, _RUNTIME = _RUNTIME, rt
+    return prev

@@ -1,0 +1,81 @@
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+Checked twice: statically, by walking every import of ``src/repro_torch``
+and ``chip_smoke.py``; and at run time, in a fresh interpreter where
+``jax`` and ``repro`` cannot be imported.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_or_repro_import_in_the_port_source():
+    assert len(MODULES) >= 20 and "repro_torch.core.ranking" in MODULES
+    bad = []
+    for path in FILES:
+        for name in _imported(ast.parse(path.read_text())):
+            if name.split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert not bad, bad
+
+
+_BLOCKED = r"""
+import importlib, importlib.abc, runpy, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("repro", "jaxlib"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.modules["jax"] = None
+sys.meta_path.insert(0, Refuse())
+for mod in sys.argv[2:]:
+    importlib.import_module(mod)
+runpy.run_path(sys.argv[1], run_name="chip_smoke_as_module")
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               or m == "repro" for m in sys.modules if sys.modules[m])
+print("ok", len(sys.argv) - 2)
+"""
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
+         *MODULES],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok", str(len(MODULES))]
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """``OperatorRuntime()`` on a host without CUDA raises and names
+    ``device="cpu"``; it never quietly picks the CPU."""
+    from repro_torch.core.runtime import OperatorRuntime
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OperatorRuntime()
