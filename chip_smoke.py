@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds
-it against its plain PyTorch version at every conv layer shape of the
-reduced operator family, checks the scoring runtime against the plain
-forward, and then drives the port's main path: one Retrieval query for
-"bus" on the 6 h Banff scene, scored through the kernel, then once more
-under the CUDA profiler for the card's busy time. It prints the query's
-simulated results, the card's own wall-clock numbers, one JSON line per
-kernel, and as its last line
+Builds the port's four CUDA kernels from the sources in this checkout,
+all at once, then drives its two paths. The ZC² query path: the conv
+kernel against its plain PyTorch version at every conv layer shape of
+the reduced operator family, the scoring runtime against the plain
+forward, and one Retrieval query for "bus" on the 6 h Banff scene,
+scored through the kernel, then once more under the CUDA profiler for
+the card's busy time. The LM serving path: the rmsnorm, flash-attention
+and decode-attention kernels against their plain versions at the shapes
+of serving h2o-danube-1.8b, the full-width model on its kernel path
+against its plain path (float32, then bfloat16), and 16 requests served
+by ``ServeEngine`` through the kernels, untraced and then traced. It
+prints the results, the card's own wall-clock numbers, one JSON line
+with every kernel, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
 non-zero, and so does a host without a CUDA card.
 """
@@ -22,6 +27,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -31,6 +37,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import landmarks as lm  # noqa: E402
 from repro_torch.core import operators as ops  # noqa: E402
 from repro_torch.core.hardware import YOLO_V3  # noqa: E402
@@ -39,10 +46,18 @@ from repro_torch.core.ranking import RetrievalExecutor  # noqa: E402
 from repro_torch.core.runtime import OperatorRuntime, set_runtime  # noqa: E402
 from repro_torch.core.stepper import drive  # noqa: E402
 from repro_torch.core.video import Video, corpus  # noqa: E402
-from repro_torch.kernels import conv_scorer as cs, ref  # noqa: E402
+from repro_torch.kernels import build, conv_scorer as cs, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
-# H100 SXM data sheet: fp32 outside the tensor cores, and HBM3 bandwidth
+# H100 SXM data sheet: fp32 outside the tensor cores, bf16 dense on the
+# tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-4            # tests/test_kernels.py's conv_scorer tolerance
 SCORE_TOL = 1e-5
@@ -50,6 +65,18 @@ N = 1024                     # OperatorRuntime.CHUNK: the largest dispatch
 FAMILY = [(2, 8, 16, 25), (3, 16, 32, 50), (4, 16, 32, 50), (5, 32, 64, 100)]
 MAIN_OP = (5, 32, 64, 100)   # the full-width operator the query ships
 HOURS = 6.0                  # the corpus's default scene length
+KERNELS = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention")
+LM_ARCH = "h2o-danube-1.8b"  # examples/serve_lm.py's default model
+LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+LOGIT_TOL = 1e-3             # float32 whole-model parity, kernel vs plain
+LEAD_CYCLES = 20_000_000     # about 11 ms of the card's clock (1.755 GHz)
+# served shapes: rmsnorm rows (a 2048-token prefill, an 8-slot decode
+# tick); flash-attention prompt lengths, 8192 past the 4096 window
+RMS_SHAPES = ((2048, torch.bfloat16), (8, torch.bfloat16),
+              (2048, torch.float32))
+FLASH_SHAPES = ((257, torch.bfloat16), (257, torch.float32),
+                (2048, torch.bfloat16), (2048, torch.float32),
+                (8192, torch.bfloat16))
 
 
 class SmokeFailure(AssertionError):
@@ -93,14 +120,21 @@ def conv_bound(n, h, cin, cout):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            lead_cycles: int = 0) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back launches,
-    from CUDA events after a warm-up."""
+    from CUDA events after a warm-up. With ``lead_cycles`` the card first
+    spins that long, so that the host has queued every launch before the
+    first one runs: the events then time the device alone, without the
+    host's cost of each call, which a small kernel's device time is
+    below."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if lead_cycles:
+        torch.cuda._sleep(lead_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -119,13 +153,19 @@ def card_line() -> str:
 # -- phase 1: build -----------------------------------------------------------
 
 def build_phase() -> None:
+    """Every kernel's nvcc build, all started together (one process per
+    source), then ptxas's registers, spills and shared memory for each."""
     t0 = time.perf_counter()
-    path = cs.build()
-    print(f"build: {path.relative_to(ROOT)} in "
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    print(f"build: {len(KERNELS)} kernels in parallel in "
           f"{time.perf_counter() - t0:.3f} s")
-    for line in cs.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    for name, path in paths.items():
+        print(f"build: {path.relative_to(ROOT)}")
+        for line in build.logs.get(name, "").splitlines():
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
+                print(f"  ptxas: {line.strip()}")
 
 
 # -- phase 2: the kernel against its plain version ----------------------------
@@ -356,10 +396,11 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
     return out
 
 
-def device_busy(prof) -> dict:
-    """Device time traced during the query: all kernels and copies, the
-    conv kernel's share, and the five largest items. Empty when the
-    trace holds no device time."""
+def device_busy(prof, kernels=(("conv_scorer", "conv3x3_bias_relu"),)
+                ) -> dict:
+    """Device time traced during a run: all kernels and copies, each
+    named kernel's share (``(label, name substring)`` pairs), and the
+    largest items. Empty when the trace holds no device time."""
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -370,12 +411,388 @@ def device_busy(prof) -> dict:
     if total <= 0:
         return {}
     rows.sort(reverse=True)
-    return {
-        "device_busy_s": total,
-        "conv_scorer_device_s": sum(r[0] for r in rows
-                                    if "conv3x3_bias_relu" in r[1]),
-        "top_kernels": [(k[:60], round(t, 4), n) for t, k, n in rows[:5]],
+    out = {"device_busy_s": total}
+    for label, sub in kernels:
+        out[f"{label}_device_s"] = sum(r[0] for r in rows if sub in r[1])
+    out["top_kernels"] = [(k[:60], round(t, 4), n) for t, k, n in rows[:8]]
+    return out
+
+
+# -- phase 5: the LM kernels at the served shapes ---------------------------
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+def _in_turns(kernel, plain, library, iters):
+    """Mean device ms of each, run plain, kernel, library, library,
+    kernel, plain, with the launches queued ahead (``LEAD_CYCLES``); and
+    the kernel's ms per call when each call waits for the host
+    (``call``)."""
+    fns = {"plain": plain, "kernel": kernel, "library": library}
+    t = {n: [] for n in fns}
+    for n in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        t[n].append(time_ms(fns[n], iters=iters, warmup=2,
+                            lead_cycles=LEAD_CYCLES))
+    out = {k: float(np.mean(v)) for k, v in t.items()}
+    out["call"] = time_ms(kernel, iters=iters, warmup=0)
+    return out
+
+
+def _bound(flops, nbytes, dtype):
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _kept_pairs(sq, sk, window, q_offset=0):
+    """(q, k) pairs that causal attention with this window keeps."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros_like(pos)
+    return int(np.sum(np.minimum(pos, sk - 1) - lo + 1))
+
+
+def _row(name, what, err, t, bound, by):
+    row = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
+           "library_ms": t["library"], "bound_ms": bound, "bound_by": by,
+           "call_ms": t["call"]}
+    print(f"kernel {name} {what}: max|err| {err:.3e}  kernel "
+          f"{row['ms']:.4f} ms (per call with the host "
+          f"{row['call_ms']:.4f} ms)  plain {row['plain_ms']:.4f} ms  library "
+          f"{row['library_ms']:.4f} ms  bound {bound:.4f} ms ({by})  "
+          f"share of bound {bound / row['ms']:.3f}")
+    return row
+
+
+def lm_kernel_phase(device) -> dict:
+    """Each LM kernel against its plain version at the shapes serving
+    h2o-danube-1.8b gives it (d 2560; 32 query heads over 8 kv heads of
+    dim 80; window 4096; 8 slots of 4096 ring rows), timed beside the
+    plain version and one PyTorch library call (the yardstick, never
+    called by the port). Returns rows keyed (kernel, label)."""
+    rows = {}
+    for rows_, dt in RMS_SHAPES:
+        x = _randn((rows_, 2560), dt, device, rows_) * 3
+        scale = 1 + 0.1 * _randn((2560,), torch.float32, device, 1)
+        got = rms.rmsnorm(x, scale)
+        err = float((got.float() - ref.rmsnorm(x, scale).float()).abs().max())
+        check(math.isfinite(err) and err <= LM_TOL[dt],
+              f"rmsnorm {rows_}x2560 {dt}: max |err| {err}")
+        lib_w = scale.to(dt)
+        t = _in_turns(lambda: rms.rmsnorm(x, scale),
+                      lambda: ref.rmsnorm(x, scale),
+                      lambda: F.rms_norm(x, (2560,), lib_w, 1e-6), iters=50)
+        size = x.element_size()
+        bound, by = _bound(3.0 * x.numel(), 2 * x.numel() * size + 4 * 2560,
+                           dt)
+        label = f"{rows_}x2560 {str(dt)[6:]}"
+        rows[("rmsnorm", label)] = _row("rmsnorm", label, err, t, bound, by)
+
+    H, KV, D, W = 32, 8, 80, 4096
+    for S, dt in FLASH_SHAPES:
+        q = _randn((1, S, H, D), dt, device, S)
+        k = _randn((1, S, KV, D), dt, device, S + 1)
+        v = _randn((1, S, KV, D), dt, device, S + 2)
+        got = fa.flash_attention(q, k, v, causal=True, window=W)
+        want = ref.attention(q, k, v, causal=True, window=W)
+        err = float((got.float() - want.float()).abs().max())
+        check(math.isfinite(err) and err <= LM_TOL[dt],
+              f"flash attention S={S} {dt}: max |err| {err}")
+        del got, want
+        qt = q.transpose(1, 2)
+        kt = ref.expand_kv(k, H).transpose(1, 2)
+        vt = ref.expand_kv(v, H).transpose(1, 2)
+        pos = torch.arange(S, device=device)
+        band = None if S <= W else \
+            (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+
+        def library():
+            if band is None:
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+
+        t = _in_turns(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                 window=W),
+                      lambda: ref.attention(q, k, v, causal=True, window=W),
+                      library, iters=3 if S > 4096 else 10)
+        pairs = _kept_pairs(S, S, W)
+        bound, by = _bound(4.0 * D * H * pairs,
+                           (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                           dt)
+        label = f"B=1 S={S} {str(dt)[6:]}"
+        rows[("flash_attention", label)] = _row("flash_attention", label,
+                                                err, t, bound, by)
+        del q, k, v, qt, kt, vt, band
+        torch.cuda.empty_cache()
+
+    B, S = 8, 4096
+    pos = np.random.default_rng(0).integers(0, S, size=B)
+    pos[-1] = S + 904                      # one slot past the ring's wrap
+    tpos = torch.tensor(pos, dtype=torch.int32, device=device)
+    n_valid = np.minimum(pos + 1, S)
+    for dt in (torch.bfloat16, torch.float32):
+        q = _randn((B, H, D), dt, device, 7)
+        k = _randn((B, S, KV, D), dt, device, 8)
+        v = _randn((B, S, KV, D), dt, device, 9)
+        got = da.decode_attention(q, k, v, tpos)
+        err = float((got.float() - ref.decode_attention(q, k, v, tpos).float()
+                     ).abs().max())
+        check(math.isfinite(err) and err <= LM_TOL[dt],
+              f"decode attention {dt}: max |err| {err}")
+        qt = q[:, :, None]
+        kt = ref.expand_kv(k, H).transpose(1, 2)
+        vt = ref.expand_kv(v, H).transpose(1, 2)
+        rows_ = torch.arange(S, device=device)[None, :]
+        valid = ((rows_ <= tpos[:, None].long()) |
+                 (tpos[:, None].long() >= S))[:, None, None, :]
+        t = _in_turns(lambda: da.decode_attention(q, k, v, tpos),
+                      lambda: ref.decode_attention(q, k, v, tpos),
+                      lambda: F.scaled_dot_product_attention(
+                          qt, kt, vt, attn_mask=valid), iters=50)
+        size = q.element_size()
+        nbytes = (2 * int(n_valid.sum()) * KV * D + 2 * q.numel()) * size \
+            + 4 * B
+        bound, by = _bound(4.0 * D * H * int(n_valid.sum()), nbytes, dt)
+        label = f"B=8 S=4096 pos {pos.tolist()} {str(dt)[6:]}"
+        rows[("decode_attention", label)] = _row("decode_attention", label,
+                                                 err, t, bound, by)
+        del q, k, v, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 6: the whole model, kernel path against plain path ----------------
+
+@contextlib.contextmanager
+def plain_lm_path():
+    """The model with its three dispatch functions swapped for their
+    plain PyTorch versions on the card: the reference of the parity
+    phase. The port itself never sends a CUDA tensor to a plain version;
+    this swap exists only here."""
+    saved = (kops.rmsnorm, kops.attention, kops.decode_attention)
+    kops.rmsnorm, kops.attention, kops.decode_attention = (
+        ref.rmsnorm, ref.attention, ref.decode_attention)
+    try:
+        yield
+    finally:
+        kops.rmsnorm, kops.attention, kops.decode_attention = saved
+
+
+def lm_launches():
+    return {"rmsnorm": rms.rmsnorm.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "decode_attention": da.decode_attention.launches}
+
+
+def _serve_both(model, prompts, max_new):
+    """Prefill logits and caches and the engine's greedy tokens of every
+    prompt, on the kernel path and on the plain path; the plain run
+    launches no kernel."""
+    out = {}
+    for path in ("kernel", "plain"):
+        ctx = plain_lm_path() if path == "plain" else contextlib.nullcontext()
+        before = lm_launches()
+        with ctx:
+            pre = [tf.prefill(model, torch.tensor(
+                p[None].astype(np.int64), device=model.device))
+                for p in prompts]
+            tokens = None
+            if max_new:
+                eng = ServeEngine(model, slots=len(prompts), cache_len=4096)
+                rids = [eng.submit(p, max_new) for p in prompts]
+                res = eng.run()
+                tokens = [res[r] for r in rids]
+        moved = {k: lm_launches()[k] - v for k, v in before.items()}
+        used = ("rmsnorm", "flash_attention") + (
+            ("decode_attention",) if max_new else ())
+        check(all(moved[k] for k in used) if path == "kernel" else
+              not any(moved.values()), f"{path} path launches {moved}")
+        out[path] = (torch.stack([lg[0, -1] for lg, _ in pre]).float(),
+                     [c for _, c in pre], tokens)
+    return out
+
+
+def unit_scores(model) -> None:
+    """Scale wq and wk to their true fan-in, 1/sqrt(d_model), in place.
+
+    ``repro/models/layers.py::param`` takes the fan-in of a 3-D weight
+    from its second-to-last axis, the head count: at full width wq's
+    entries have std 1/sqrt(32) and wk's 1/sqrt(8), so a score q.k /
+    sqrt(80) has a std near 159 and the softmax is all but one-hot. A
+    perturbation at rounding level then grows from layer to layer (the
+    parity phase prints how fast), and no two computations of the model
+    that are not bit-identical agree after 24 layers. With this scaling
+    the scores have unit variance, as in a trained model."""
+    cfg = model.cfg
+    with torch.no_grad():
+        for b in model.blocks:
+            b.mixer.wq.mul_((cfg.num_heads / cfg.d_model) ** 0.5)
+            b.mixer.wk.mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
+
+
+def lm_parity_phase(device) -> dict:
+    """h2o-danube-1.8b at full width and depth, random weights from one
+    CUDA generator seed, kernel path against plain path. At the JAX
+    package's init scale (float32) the per-layer gap of the caches is
+    printed: it grows with depth. With unit-variance scores
+    (``unit_scores``): in float32 the prefill logits are within 1e-3
+    and the greedy tokens identical; as published (bfloat16) the first
+    token of every request agrees."""
+    out = {}
+    for cdt, scale in (("float32", "jax"), ("float32", "unit"),
+                       ("bfloat16", "unit")):
+        cfg = get_config(LM_ARCH).scaled(compute_dtype=cdt)
+        prompts = [np.random.default_rng(s).integers(0, cfg.vocab_size, n)
+                   for s, n in enumerate((5, 77, 1031, 2047))]
+        t0 = time.perf_counter()
+        model = tf.init_model(cfg, torch.Generator(device=device)
+                              .manual_seed(0), device)
+        t_init = time.perf_counter() - t0
+        if scale == "unit":
+            unit_scores(model)
+        both = _serve_both(model, prompts, max_new=8 if scale == "unit"
+                           else 0)
+        (lk, ck, tk), (lp, cp, tp) = both["kernel"], both["plain"]
+        check(bool(torch.isfinite(lk).all()) and
+              lk.shape == (4, cfg.vocab_size),
+              f"{cdt} prefill logits {tuple(lk.shape)}")
+        dmax = float((lk - lp).abs().max())
+        rel = dmax / float(lp.abs().max())
+        # the longest prompt's k cache, layer by layer
+        gap = [float((a["k"].float() - b["k"].float()).abs().max())
+               for a, b in zip(ck[-1], cp[-1])]
+        row = {"max_abs_dlogit": dmax, "rel_dlogit": rel,
+               "max_abs_dk_by_layer": gap}
+        line = (f"parity {LM_ARCH} {cdt}, {scale} scores ({cfg.num_layers}L "
+                f"d{cfg.d_model}, init {t_init:.2f} s): prefill "
+                f"max|dlogit| {dmax:.3e}, / max|logit| {rel:.3e}; "
+                f"max|dk| by layer " + " ".join(f"{g:.1e}" for g in gap))
+        if tk is not None:
+            agree = sum(a == b for x, y in zip(tk, tp) for a, b in zip(x, y))
+            row["token_agreement"] = agree / sum(len(x) for x in tp)
+            line += (f"; greedy tokens agree {row['token_agreement']:.4f}; "
+                     f"kernel {tk[1]} plain {tp[1]}")
+        print(line)
+        if scale == "unit":
+            if cdt == "float32":
+                check(dmax <= LOGIT_TOL, f"float32 logits differ by {dmax}")
+                check(tk == tp, "float32 greedy tokens differ")
+            check(all(a[0] == b[0] for a, b in zip(tk, tp)),
+                  f"{cdt}: a first token differs")
+        out[f"{cdt}_{scale}"] = row
+        del model, both, ck, cp
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 7: the LM main path, serving h2o-danube-1.8b -----------------------
+
+def serve_phase(device, trace: bool = False) -> dict:
+    """16 requests submitted at once to ``ServeEngine`` (8 slots, 4096
+    ring rows) serving the published h2o-danube-1.8b (bfloat16) with
+    random weights: prompts of 128-2048 tokens, 64 greedy tokens each.
+    Host wall of each prefill and each decode tick (each ends in the
+    sampler's copy to the host, so the card has finished), time to
+    first token per request, and the LM kernels' launches."""
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = tf.init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                          device)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 2049, size=16)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    eng = ServeEngine(model, slots=8, cache_len=4096)
+    wall = {"prefill": 0.0, "decode": 0.0, "ticks": 0, "decoded": 0}
+    first = {}
+    prefill_into, tick = eng._prefill_into, eng._tick
+
+    def timed_prefill(slot, req):
+        t = time.perf_counter()
+        prefill_into(slot, req)
+        now = time.perf_counter()
+        wall["prefill"] += now - t
+        first[req.rid] = now - t0
+
+    def timed_tick(results):
+        n = sum(r is not None for r in eng.active.values())
+        t = time.perf_counter()
+        tick(results)
+        wall["decode"] += time.perf_counter() - t
+        wall["ticks"] += 1
+        wall["decoded"] += n
+
+    eng._prefill_into, eng._tick = timed_prefill, timed_tick
+    rids = [eng.submit(p, max_new=64) for p in prompts]
+    profiler = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) \
+        if trace else contextlib.nullcontext()
+    for f in (rms.rmsnorm, fa.flash_attention, da.decode_attention):
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiler:
+        res = eng.run()
+        torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    launches = lm_launches()
+    check(sorted(res) == sorted(rids) and
+          all(len(res[r]) == 64 for r in rids), "not every request finished")
+    check(all(0 <= t < cfg.vocab_size for r in rids for t in res[r]),
+          "a token outside the vocabulary")
+    check(all(launches.values()), f"an LM kernel was not launched: {launches}")
+    ttft = np.array([first[r] for r in rids])
+    out = {
+        "requests": len(rids), "prompt_tokens": int(lens.sum()),
+        "new_tokens": sum(len(res[r]) for r in rids), "wall_s": t_wall,
+        "prefill_s": wall["prefill"], "decode_s": wall["decode"],
+        "ticks": wall["ticks"],
+        "prefill_tok_per_s": float(lens.sum()) / wall["prefill"],
+        "decode_tok_per_s": wall["decoded"] / wall["decode"],
+        "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": float(ttft.max()),
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if trace:
+        out.update(device_busy(profiler, (
+            ("rmsnorm", "rmsnorm_rows"), ("flash_attention", "flash_fwd"),
+            ("decode_attention", "decode_"))))
+        if "device_busy_s" in out:
+            out["busy_share"] = out["device_busy_s"] / t_wall
+    label = "traced serve" if trace else "serve"
+    print(f"{label} {LM_ARCH} ({cfg.compute_dtype}, {cfg.num_layers}L "
+          f"d{cfg.d_model}, 8 slots x 4096): "
+          f"{out['requests']} requests, {out['prompt_tokens']} prompt + "
+          f"{out['new_tokens']} new tokens in {t_wall:.3f} s wall; prefill "
+          f"{out['prefill_s']:.3f} s = {out['prefill_tok_per_s']:.1f} tok/s; "
+          f"decode {out['decode_s']:.3f} s over {out['ticks']} ticks = "
+          f"{out['decode_tok_per_s']:.1f} tok/s; TTFT p50 "
+          f"{out['ttft_p50_s']:.3f} s, max {out['ttft_max_s']:.3f} s; "
+          f"launches {launches}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
+LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:38",
+               "flash_attention": "src/repro/kernels/flash_attention.py:118",
+               "decode_attention": "src/repro/kernels/decode_attention.py:71"}
+
+
+def lm_line(name, rows, launches, label) -> dict:
+    """A kernel's entry of the ``kernels`` line: times and bound at the
+    row whose label ends with ``label`` (the largest served bf16 shape),
+    the largest error over every checked shape, launches of the serve."""
+    mine = {lab: r for (n, lab), r in rows.items() if n == name}
+    row = next(r for lab, r in mine.items() if lab.endswith(label))
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": LM_REPLACES[name], "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
 
 
 def main() -> int:
@@ -405,6 +822,20 @@ def main() -> int:
            f"{traced['wall_query_s']:.2f} s wall)" if busy
            else "not measured") +
           f"; the rerun repeats the simulated results: {same}")
+    # the LM zoo's path: its kernels at the served shapes, the whole
+    # model against its plain path, then h2o-danube-1.8b served, untraced
+    # and once more under the profiler
+    lm_rows = lm_kernel_phase(device)
+    lm_parity_phase(device)
+    serve = serve_phase(device)
+    print("serve: " + json.dumps(serve))
+    traced_serve = serve_phase(device, trace=True)
+    print("traced serve: " + json.dumps(traced_serve))
+    busy = traced_serve.get("device_busy_s")
+    print("device busy share of the traced serve: " +
+          (f"{traced_serve['busy_share']:.4f} ({busy:.3f} s of "
+           f"{traced_serve['wall_s']:.2f} s wall)" if busy
+           else "not measured"))
     # the kernel's line: one 1024-frame chunk of the full-width operator,
     # its five conv layers (the main path's largest dispatch); the bound
     # is the larger of their summed bytes and summed operations' times
@@ -423,7 +854,10 @@ def main() -> int:
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": sum(r["library_ms"] for r in main_rows),
-    }]}))
+    }] + [lm_line(name, lm_rows, serve["launches"][name], label)
+          for name, label in (("rmsnorm", "2048x2560 bfloat16"),
+                              ("flash_attention", "B=1 S=2048 bfloat16"),
+                              ("decode_attention", "bfloat16"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,7 @@ the CPU tests run it against the JAX package's references, and
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,3 +48,80 @@ def conv_scorer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         out = F.conv2d(xp, w.float().permute(3, 2, 0, 1), stride=stride)
     out = torch.relu(out + b.float()[:, None, None])
     return out.permute(0, 2, 3, 1).contiguous().to(x.dtype)
+
+
+NEG_INF = -1e30
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale`` per row in float32, cast
+    back to x's type (``repro/kernels/ref.py::rmsnorm``)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Compact GQA (..., KV, D) -> (..., H, D): query head h reads kv
+    head h // (H / KV), the model's grouping for its real heads."""
+    n_kv = k.shape[-2]
+    return k if n_kv == n_heads else \
+        k.repeat_interleave(n_heads // n_kv, dim=-2)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, D); k, v (B, Sk, KV, D) with KV dividing H.
+
+    Query row i sits at absolute position ``q_offset + i``; when
+    ``q_offset`` is 0 and Sq != Sk, q is aligned to the end of k
+    (``repro/kernels/ref.py::attention`` and the Pallas kernel's
+    convention). A pair is kept iff ``kpos <= qpos`` (causal) and
+    ``kpos > qpos - window``. Float32 scores and softmax, cast back to
+    q's type. The loop over kv heads bounds the scores' memory at long
+    sequences."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if q_offset == 0 and Sq != Sk:
+        q_offset = Sk - Sq
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    g = H // KV
+    outs = []
+    for j in range(KV):
+        qj = q[:, :, j * g:(j + 1) * g].float()                 # (B,Sq,g,D)
+        s = torch.einsum("bqgd,bsd->bgqs", qj, k[:, :, j].float()) / (D ** 0.5)
+        p = torch.softmax(s.masked_fill(~keep, NEG_INF), dim=-1)
+        outs.append(torch.einsum("bgqs,bsd->bqgd", p, v[:, :, j].float()))
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, H, D) against the compact ring cache k, v (B, S, KV, D).
+
+    ``pos`` (B,): the model's validity mask (``repro/models/attention.py
+    ::decode_attention``): ring row r is valid iff ``r <= pos`` or
+    ``pos >= S``; None means every row is valid (the Pallas kernel's
+    function). Float32 scores, softmax and P.V (the model rounds p to
+    the cache type first; the kernels keep it float32), cast back to
+    q's type."""
+    H, D = q.shape[1], q.shape[2]
+    S = k.shape[1]
+    s = torch.einsum("bhd,bshd->bhs", q.float(),
+                     expand_kv(k, H).float()) / (D ** 0.5)
+    if pos is not None:
+        rows = torch.arange(S, device=q.device)[None, :]
+        p = pos.to(q.device).long()[:, None]
+        valid = (rows <= p) | (p >= S)                            # (B, S)
+        s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", p, expand_kv(v, H).float())
+    return out.to(q.dtype)

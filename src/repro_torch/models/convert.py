@@ -1,0 +1,54 @@
+"""The JAX package's weights, carried into the port's model.
+
+``params_from_jax(cfg, tree)`` takes the parameter tree of
+``repro.models.transformer.init_model`` as NumPy arrays, after
+``layers.split_annotated(...)[0]``: each pattern position's weights are
+stacked over periods on a leading ``layer`` axis, and the query heads
+are padded to the JAX package's tensor-parallel multiple. It unstacks the
+layer axis (layer ``p * len(pattern) + j`` is period p's position j) and
+keeps only the real query heads, whose padded partners the JAX model
+masks to exactly zero.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import Device, resolve_device
+from repro_torch.models import attention
+from repro_torch.models.transformer import Transformer, check_supported
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def params_from_jax(cfg: ModelConfig, tree: Mapping,
+                    device: Device = None) -> Transformer:
+    check_supported(cfg)
+    device = resolve_device(device)
+    h = cfg.num_heads
+    hp = attention.padded_heads(h)
+    n_pat = len(cfg.pattern)
+    weights = {"embed": _t(tree["embed"]["table"]),
+               "final_norm": _t(tree["final_norm"]["scale"]), "layers": []}
+    if not cfg.tie_embeddings:
+        weights["unembed"] = _t(tree["unembed"]["table"])
+    for i in range(cfg.num_layers):
+        p, j = divmod(i, n_pat)
+        blk = tree["blocks"][j]
+        mix, ffn = blk["mixer"], blk["ffn"]
+        if np.shape(mix["wq"])[-2] != hp:
+            raise ValueError(f"wq has {np.shape(mix['wq'])[-2]} heads; the "
+                             f"JAX package pads {h} to {hp}")
+        weights["layers"].append({
+            "norm1": _t(blk["norm1"]["scale"][p]),
+            "norm2": _t(blk["norm2"]["scale"][p]),
+            "wq": _t(mix["wq"][p][:, :h]), "wk": _t(mix["wk"][p]),
+            "wv": _t(mix["wv"][p]), "wo": _t(mix["wo"][p][:h]),
+            "wg": _t(ffn["wg"][p]), "wu": _t(ffn["wu"][p]),
+            "ffn_wo": _t(ffn["wo"][p])})
+    return Transformer(cfg, weights, device)

@@ -17,7 +17,7 @@ from numpy.testing import assert_allclose  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.conv_scorer import conv_scorer as pallas_conv  # noqa: E402
 from repro_torch.kernels import conv_scorer as cs  # noqa: E402
-from repro_torch.kernels import ops as kops, ref  # noqa: E402
+from repro_torch.kernels import build, ops as kops, ref  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -106,8 +106,9 @@ def test_conv_scorer_fn_picks_by_device(monkeypatch):
 
 
 def test_build_is_keyed_by_source_hash():
-    path = cs.library_path()
-    assert path.parent == cs.BUILD_DIR
+    path = build.library_path("conv_scorer")
+    assert path.parent == build.BUILD_DIR
     assert path.parent.parts[-2:] == ("build", "repro_torch")
-    assert path == cs.library_path()
-    assert "arch=compute_90a,code=sm_90a" in cs.NVCC_FLAGS
+    assert path == build.library_path("conv_scorer")
+    assert path.name.startswith("libconv_scorer_")
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

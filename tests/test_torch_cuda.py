@@ -12,9 +12,15 @@ torch = pytest.importorskip("torch")
 
 from numpy.testing import assert_allclose  # noqa: E402
 
+from repro_torch.configs.base import get_smoke_config  # noqa: E402
 from repro_torch.core import operators as ops  # noqa: E402
 from repro_torch.core import runtime as rt_mod  # noqa: E402
 from repro_torch.kernels import conv_scorer as cs, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +108,135 @@ def test_training_runs_on_the_card(cuda):
     again = ops.train_operator(arch, None, crops, labels, labels, steps=3)
     assert all(torch.equal(a, b) for a, b in
                zip(ops._leaves(params), ops._leaves(again)))
+
+
+# -- the LM kernels -----------------------------------------------------------
+
+LM_DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("name", LM_DTYPES)
+@pytest.mark.parametrize("rows,d", [(1, 2560), (37, 2560), (5, 200)])
+def test_rmsnorm_kernel_matches_plain_version(cuda, name, rows, d):
+    dtype, tol = LM_DTYPES[name]
+    x = _randn((rows, d), dtype, cuda, rows) * 3
+    scale = _randn((d,), torch.float32, cuda, 1)
+    before = rms.rmsnorm.launches
+    got = rms.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rms.rmsnorm.launches == before + 1
+    assert got.dtype == dtype
+    assert_allclose(got.float().cpu().numpy(),
+                    ref.rmsnorm(x, scale).float().cpu().numpy(),
+                    rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", LM_DTYPES)
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,window,q_offset", [
+    (1, 257, 257, 32, 8, 80, 4096, 0),    # the served heads, ragged prompt
+    (2, 70, 70, 4, 2, 16, 32, 0),         # the smoke config's heads
+    (1, 100, 100, 4, 1, 64, 33, 0),       # narrow band across tiles
+    (1, 40, 130, 2, 2, 128, None, 0),     # suffix-aligned q
+    (1, 30, 90, 4, 4, 32, 20, 50),        # explicit q_offset
+])
+def test_flash_attention_kernel_matches_plain_version(
+        cuda, name, B, Sq, Sk, H, KV, D, window, q_offset):
+    dtype, tol = LM_DTYPES[name]
+    q = _randn((B, Sq, H, D), dtype, cuda, 1)
+    k = _randn((B, Sk, KV, D), dtype, cuda, 2)
+    v = _randn((B, Sk, KV, D), dtype, cuda, 3)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True, window=window,
+                             q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = ref.attention(q, k, v, causal=True, window=window,
+                         q_offset=q_offset)
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    rtol=tol, atol=tol)
+    got = fa.flash_attention(q, k, v, causal=False, window=window,
+                             q_offset=q_offset)
+    want = ref.attention(q, k, v, causal=False, window=window,
+                         q_offset=q_offset)
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", LM_DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,D,pos", [
+    (8, 4096, 32, 8, 80, [0, 1, 255, 256, 1000, 2047, 4095, 9000]),
+    (3, 300, 4, 2, 16, [17, 299, 301]),
+    (2, 64, 8, 8, 128, None),
+])
+def test_decode_attention_kernel_matches_plain_version(
+        cuda, name, B, S, H, KV, D, pos):
+    dtype, tol = LM_DTYPES[name]
+    q = _randn((B, H, D), dtype, cuda, 4)
+    k = _randn((B, S, KV, D), dtype, cuda, 5)
+    v = _randn((B, S, KV, D), dtype, cuda, 6)
+    p = None if pos is None else torch.tensor(pos, dtype=torch.int32,
+                                              device=cuda)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, p)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert_allclose(got.float().cpu().numpy(),
+                    ref.decode_attention(q, k, v, p).float().cpu().numpy(),
+                    rtol=tol, atol=tol)
+
+
+def test_lm_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(4, 64, device=cuda)
+    scale = torch.ones(64, device=cuda)
+    with pytest.raises(TypeError):
+        rms.rmsnorm(x.half(), scale)
+    with pytest.raises(ValueError):
+        rms.rmsnorm(x, scale.cpu())                     # mixed devices
+    with pytest.raises(ValueError):
+        rms.rmsnorm(x.t(), torch.ones(4, device=cuda))  # not contiguous
+    q = torch.zeros(1, 8, 4, 16, device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):
+        fa.flash_attention(torch.zeros(1, 8, 4, 24, device=cuda),
+                           torch.zeros(1, 8, 4, 24, device=cuda),
+                           torch.zeros(1, 8, 4, 24, device=cuda))  # head dim
+    cache = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(TypeError):
+        da.decode_attention(q[:, 0], cache, cache,
+                            torch.zeros(1, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        da.decode_attention(q[:, 0], cache, cache,
+                            torch.zeros(1, dtype=torch.int32))  # pos on cpu
+    with pytest.raises(ValueError):
+        da.decode_attention(q[:, 0, :3], cache, cache)   # 3 heads over 2
+
+
+def test_engine_serves_through_the_kernels(cuda):
+    """One request on the card launches every LM kernel: 2 norms per
+    layer plus the final one per forward, one flash attention per layer
+    in prefill and one decode attention per layer per tick."""
+    cfg = get_smoke_config("h2o-danube-1.8b").scaled(remat=False)
+    model = tf.init_model(cfg, torch.Generator().manual_seed(0))
+    assert model.device.type == "cuda"
+    eng = ServeEngine(model, slots=2, cache_len=64)
+    counts = (rms.rmsnorm.launches, fa.flash_attention.launches,
+              da.decode_attention.launches)
+    rid = eng.submit(np.arange(40) % cfg.vocab_size, max_new=4)
+    out = eng.run()[rid]
+    assert len(out) == 4
+    L = cfg.num_layers
+    assert rms.rmsnorm.launches - counts[0] == (2 * L + 1) * 4
+    assert fa.flash_attention.launches - counts[1] == L
+    assert da.decode_attention.launches - counts[2] == L * 3
+    cpu = tf.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng_cpu = ServeEngine(cpu, slots=2, cache_len=64, device="cpu")
+    rid = eng_cpu.submit(np.arange(40) % cfg.vocab_size, max_new=4)
+    assert eng_cpu.run()[rid] == out

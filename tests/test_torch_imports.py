@@ -33,6 +33,12 @@ def _imported(tree):
 
 def test_no_jax_or_repro_import_in_the_port_source():
     assert len(MODULES) >= 20 and "repro_torch.core.ranking" in MODULES
+    assert {"repro_torch.kernels.build", "repro_torch.kernels.rmsnorm",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.configs.h2o_danube_1_8b",
+            "repro_torch.models.transformer", "repro_torch.models.convert",
+            "repro_torch.serving.engine"} <= set(MODULES)
     bad = []
     for path in FILES:
         for name in _imported(ast.parse(path.read_text())):
@@ -73,9 +79,17 @@ def test_port_imports_with_jax_and_repro_blocked():
 
 
 def test_default_device_is_the_card(monkeypatch):
-    """``OperatorRuntime()`` on a host without CUDA raises and names
-    ``device="cpu"``; it never quietly picks the CPU."""
+    """``OperatorRuntime()`` and the LM entry points on a host without
+    CUDA raise and name ``device="cpu"``; they never quietly pick the
+    CPU."""
+    from repro_torch.configs.base import get_smoke_config
     from repro_torch.core.runtime import OperatorRuntime
+    from repro_torch.models import transformer
+    from repro_torch.models.convert import params_from_jax
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        OperatorRuntime()
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    for entry in (OperatorRuntime, lambda: transformer.init_model(cfg),
+                  lambda: transformer.init_caches(cfg, 1, 8),
+                  lambda: params_from_jax(cfg, {})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
