@@ -3,25 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from the sources in this checkout,
-all at once, then drives its two paths. The ZC² query path: the conv
-kernel against its plain PyTorch version at every conv layer shape of
-the reduced operator family, the scoring runtime against the plain
-forward, and one Retrieval query for "bus" on the 6 h Banff scene,
-scored through the kernel, then once more under the CUDA profiler for
-the card's busy time. The LM serving path: the rmsnorm, flash-attention
-and decode-attention kernels against their plain versions at the shapes
-of serving h2o-danube-1.8b, the full-width model on its kernel path
-against its plain path (float32, then bfloat16), and 16 requests served
-by ``ServeEngine`` through the kernels, untraced and then traced. It
-prints the results, the card's own wall-clock numbers, one JSON line
-with every kernel, and as its last line
+Builds the port's five CUDA kernels from the sources in this checkout,
+all at once, then drives its paths. The ZC² query path: the conv kernel
+against its plain PyTorch version at every conv layer shape of the
+reduced operator family, the scoring runtime against the plain forward,
+and one Retrieval query for "bus" on the 6 h Banff scene, scored
+through the kernel, then once more under the CUDA profiler for the
+card's busy time. The LM serving path, for h2o-danube-1.8b (dense) and
+then granite-moe-3b-a800m (MoE): the rmsnorm, flash-attention,
+decode-attention and (for granite) grouped expert matmul kernels against
+their plain versions at the shapes serving the model gives them, the
+full-width model on its kernel path against its plain path (float32,
+then bfloat16), and 16 requests served by ``ServeEngine`` through the
+kernels, untraced and then traced. It prints the results, the card's own
+wall-clock numbers, one JSON line with every kernel, and as its last
+line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
 non-zero, and so does a host without a CUDA card.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -49,8 +52,10 @@ from repro_torch.core.video import Video, corpus  # noqa: E402
 from repro_torch.kernels import build, conv_scorer as cs, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
@@ -65,10 +70,15 @@ N = 1024                     # OperatorRuntime.CHUNK: the largest dispatch
 FAMILY = [(2, 8, 16, 25), (3, 16, 32, 50), (4, 16, 32, 50), (5, 32, 64, 100)]
 MAIN_OP = (5, 32, 64, 100)   # the full-width operator the query ships
 HOURS = 6.0                  # the corpus's default scene length
-KERNELS = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention")
+KERNELS = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention",
+           "moe_gmm")
+LM_KERNELS = KERNELS[1:]
 LM_ARCH = "h2o-danube-1.8b"  # examples/serve_lm.py's default model
+MOE_ARCH = "granite-moe-3b-a800m"   # ROADMAP's MoE configuration
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py
 LOGIT_TOL = 1e-3             # float32 whole-model parity, kernel vs plain
+ROUTE_LIMIT = 1e-3           # share of top-k expert sets that may differ
 LEAD_CYCLES = 20_000_000     # about 11 ms of the card's clock (1.755 GHz)
 # served shapes: rmsnorm rows (a 2048-token prefill, an 8-slot decode
 # tick); flash-attention prompt lengths, 8192 past the 4096 window
@@ -77,6 +87,16 @@ RMS_SHAPES = ((2048, torch.bfloat16), (8, torch.bfloat16),
 FLASH_SHAPES = ((257, torch.bfloat16), (257, torch.float32),
                 (2048, torch.bfloat16), (2048, torch.float32),
                 (8192, torch.bfloat16))
+# granite-moe-3b-a800m (d 1536, 24/8 heads of 64, no window): the norm of
+# a prefill and of a tick, and a 2048-token prompt's attention
+MOE_RMS_SHAPES = ((2048, torch.bfloat16), (8, torch.bfloat16))
+MOE_FLASH_SHAPES = ((2048, torch.bfloat16), (2048, torch.float32))
+# grouped expert matmul: capacity C of a decode tick (8 slots), of
+# 128-, 1100- and 2048-token prompts (32, 275, 512: ceil(S*8*1.25/40),
+# at least 8), each for the gate/up (1536 -> 512) and down (512 -> 1536)
+# products
+GMM_CAPS = (8, 32, 275, 512)
+GMM_DIMS = ((1536, 512), (512, 1536))
 
 
 class SmokeFailure(AssertionError):
@@ -141,6 +161,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def free_memory() -> None:
+    """Collect reference cycles (a served engine's wrapped methods refer
+    back to it, and so to its model and caches) and return the cached
+    blocks, so that a phase's peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -466,32 +494,39 @@ def _row(name, what, err, t, bound, by):
     return row
 
 
-def lm_kernel_phase(device) -> dict:
-    """Each LM kernel against its plain version at the shapes serving
-    h2o-danube-1.8b gives it (d 2560; 32 query heads over 8 kv heads of
-    dim 80; window 4096; 8 slots of 4096 ring rows), timed beside the
-    plain version and one PyTorch library call (the yardstick, never
-    called by the port). Returns rows keyed (kernel, label)."""
+def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
+                    flash_shapes=FLASH_SHAPES) -> dict:
+    """Each attention-model kernel against its plain version at the
+    shapes serving ``arch`` gives it (h2o-danube-1.8b: d 2560, 32 query
+    heads over 8 kv heads of dim 80, window 4096; granite-moe-3b-a800m:
+    d 1536, 24 over 8 of dim 64, no window; 8 slots of 4096 ring rows),
+    timed beside the plain version and one PyTorch library call (the
+    yardstick, never called by the port). Returns rows keyed (kernel,
+    label); granite's labels name its heads."""
+    cfg = get_config(arch)
+    d, H, KV, D = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.resolved_head_dim)
+    W = cfg.pattern[0].window
+    heads = "" if arch == LM_ARCH else f" {H}/{KV}x{D}"
     rows = {}
-    for rows_, dt in RMS_SHAPES:
-        x = _randn((rows_, 2560), dt, device, rows_) * 3
-        scale = 1 + 0.1 * _randn((2560,), torch.float32, device, 1)
+    for rows_, dt in rms_shapes:
+        x = _randn((rows_, d), dt, device, rows_) * 3
+        scale = 1 + 0.1 * _randn((d,), torch.float32, device, 1)
         got = rms.rmsnorm(x, scale)
         err = float((got.float() - ref.rmsnorm(x, scale).float()).abs().max())
         check(math.isfinite(err) and err <= LM_TOL[dt],
-              f"rmsnorm {rows_}x2560 {dt}: max |err| {err}")
+              f"rmsnorm {rows_}x{d} {dt}: max |err| {err}")
         lib_w = scale.to(dt)
         t = _in_turns(lambda: rms.rmsnorm(x, scale),
                       lambda: ref.rmsnorm(x, scale),
-                      lambda: F.rms_norm(x, (2560,), lib_w, 1e-6), iters=50)
+                      lambda: F.rms_norm(x, (d,), lib_w, 1e-6), iters=50)
         size = x.element_size()
-        bound, by = _bound(3.0 * x.numel(), 2 * x.numel() * size + 4 * 2560,
+        bound, by = _bound(3.0 * x.numel(), 2 * x.numel() * size + 4 * d,
                            dt)
-        label = f"{rows_}x2560 {str(dt)[6:]}"
+        label = f"{rows_}x{d} {str(dt)[6:]}"
         rows[("rmsnorm", label)] = _row("rmsnorm", label, err, t, bound, by)
 
-    H, KV, D, W = 32, 8, 80, 4096
-    for S, dt in FLASH_SHAPES:
+    for S, dt in flash_shapes:
         q = _randn((1, S, H, D), dt, device, S)
         k = _randn((1, S, KV, D), dt, device, S + 1)
         v = _randn((1, S, KV, D), dt, device, S + 2)
@@ -505,7 +540,7 @@ def lm_kernel_phase(device) -> dict:
         kt = ref.expand_kv(k, H).transpose(1, 2)
         vt = ref.expand_kv(v, H).transpose(1, 2)
         pos = torch.arange(S, device=device)
-        band = None if S <= W else \
+        band = None if W is None or S <= W else \
             (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
 
         def library():
@@ -522,7 +557,7 @@ def lm_kernel_phase(device) -> dict:
         bound, by = _bound(4.0 * D * H * pairs,
                            (2 * q.numel() + 2 * k.numel()) * q.element_size(),
                            dt)
-        label = f"B=1 S={S} {str(dt)[6:]}"
+        label = f"B=1 S={S}{heads} {str(dt)[6:]}"
         rows[("flash_attention", label)] = _row("flash_attention", label,
                                                 err, t, bound, by)
         del q, k, v, qt, kt, vt, band
@@ -556,10 +591,49 @@ def lm_kernel_phase(device) -> dict:
         nbytes = (2 * int(n_valid.sum()) * KV * D + 2 * q.numel()) * size \
             + 4 * B
         bound, by = _bound(4.0 * D * H * int(n_valid.sum()), nbytes, dt)
-        label = f"B=8 S=4096 pos {pos.tolist()} {str(dt)[6:]}"
+        label = f"B=8 S=4096{heads} pos {pos.tolist()} {str(dt)[6:]}"
         rows[("decode_attention", label)] = _row("decode_attention", label,
                                                  err, t, bound, by)
         del q, k, v, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_kernel_phase(device) -> dict:
+    """The grouped expert matmul against its plain version at the shapes
+    serving granite-moe-3b-a800m gives it (40 experts; capacity 8 in a
+    decode tick, 32 to 512 in a prefill, one ragged; 1536 -> 512 for
+    the gate and up products, 512 -> 1536 for the down product), in
+    bfloat16 and float32, timed beside the plain version and one
+    ``torch.bmm`` (the yardstick, never called by the port). x has unit
+    entries, as a normed token does, and w the init's 1/sqrt(fan-in)."""
+    E = get_config(MOE_ARCH).num_experts
+    rows = {}
+    for C in GMM_CAPS:
+        for d, f in GMM_DIMS:
+            for dt in (torch.bfloat16, torch.float32):
+                x = _randn((E, C, d), dt, device, C + d)
+                w = (_randn((E, d, f), torch.float32, device, C + d + 1)
+                     / d ** 0.5).to(dt)
+                got = gmm.moe_gmm(x, w)
+                err = float((got.float() - ref.moe_gmm(x, w).float())
+                            .abs().max())
+                check(math.isfinite(err) and err <= GMM_TOL[dt],
+                      f"moe_gmm E={E} C={C} {d}->{f} {dt}: max |err| {err}")
+                check(torch.equal(gmm.moe_gmm(x[:, :1].contiguous(), w),
+                                  got[:, :1]),
+                      f"moe_gmm C={C} {d}->{f} {dt}: a row's result "
+                      "depends on C")
+                t = _in_turns(lambda: gmm.moe_gmm(x, w),
+                              lambda: ref.moe_gmm(x, w),
+                              lambda: torch.bmm(x, w), iters=20)
+                bound, by = _bound(2.0 * E * C * d * f,
+                                   (x.numel() + w.numel() + E * C * f)
+                                   * x.element_size(), dt)
+                label = f"E={E} C={C} {d}->{f} {str(dt)[6:]}"
+                rows[("moe_gmm", label)] = _row("moe_gmm", label, err, t,
+                                                bound, by)
+                del x, w, got
     torch.cuda.empty_cache()
     return rows
 
@@ -568,59 +642,125 @@ def lm_kernel_phase(device) -> dict:
 
 @contextlib.contextmanager
 def plain_lm_path():
-    """The model with its three dispatch functions swapped for their
+    """The model with its four dispatch functions swapped for their
     plain PyTorch versions on the card: the reference of the parity
     phase. The port itself never sends a CUDA tensor to a plain version;
     this swap exists only here."""
-    saved = (kops.rmsnorm, kops.attention, kops.decode_attention)
-    kops.rmsnorm, kops.attention, kops.decode_attention = (
-        ref.rmsnorm, ref.attention, ref.decode_attention)
+    names = ("rmsnorm", "attention", "decode_attention", "moe_gmm")
+    saved = [getattr(kops, n) for n in names]
+    for n in names:
+        setattr(kops, n, getattr(ref, n))
     try:
         yield
     finally:
-        kops.rmsnorm, kops.attention, kops.decode_attention = saved
+        for n, fn in zip(names, saved):
+            setattr(kops, n, fn)
 
 
 def lm_launches():
     return {"rmsnorm": rms.rmsnorm.launches,
             "flash_attention": fa.flash_attention.launches,
-            "decode_attention": da.decode_attention.launches}
+            "decode_attention": da.decode_attention.launches,
+            "moe_gmm": gmm.moe_gmm.launches}
+
+
+@contextlib.contextmanager
+def recorded_routes(log, label):
+    """Append ``(label[0], top-k experts)`` to ``log`` at every MoE
+    layer's routing, in call order."""
+    real = moe.route
+
+    def route(*args, **kwargs):
+        out = real(*args, **kwargs)
+        log.append((label[0], out[3].clone()))
+        return out
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = real
 
 
 def _serve_both(model, prompts, max_new):
     """Prefill logits and caches and the engine's greedy tokens of every
     prompt, on the kernel path and on the plain path; the plain run
-    launches no kernel."""
+    launches no kernel. For an MoE model, also every routing of both
+    paths (``recorded_routes``), labelled by request: the standalone
+    prefills ("prefill", r), the engine's prefills ("again", r), which
+    repeat them, and its ticks ("tick", {slot: r})."""
     out = {}
+    is_moe = model.cfg.num_experts > 0
     for path in ("kernel", "plain"):
         ctx = plain_lm_path() if path == "plain" else contextlib.nullcontext()
+        log, label = [], [None]
         before = lm_launches()
-        with ctx:
-            pre = [tf.prefill(model, torch.tensor(
-                p[None].astype(np.int64), device=model.device))
-                for p in prompts]
+        with ctx, recorded_routes(log, label):
+            pre = []
+            for r, p in enumerate(prompts):
+                label[0] = ("prefill", r)
+                pre.append(tf.prefill(model, torch.tensor(
+                    p[None].astype(np.int64), device=model.device)))
             tokens = None
             if max_new:
                 eng = ServeEngine(model, slots=len(prompts), cache_len=4096)
                 rids = [eng.submit(p, max_new) for p in prompts]
+                index = {rid: r for r, rid in enumerate(rids)}
+                prefill_into, tick = eng._prefill_into, eng._tick
+
+                def labelled_prefill(slot, req):
+                    label[0] = ("again", index[req.rid])
+                    prefill_into(slot, req)
+
+                def labelled_tick(results):
+                    label[0] = ("tick", {s: index[q.rid] for s, q in
+                                         eng.active.items() if q is not None})
+                    tick(results)
+
+                eng._prefill_into, eng._tick = labelled_prefill, labelled_tick
                 res = eng.run()
                 tokens = [res[r] for r in rids]
         moved = {k: lm_launches()[k] - v for k, v in before.items()}
         used = ("rmsnorm", "flash_attention") + (
-            ("decode_attention",) if max_new else ())
+            ("decode_attention",) if max_new else ()) + (
+            ("moe_gmm",) if is_moe else ())
         check(all(moved[k] for k in used) if path == "kernel" else
               not any(moved.values()), f"{path} path launches {moved}")
         out[path] = (torch.stack([lg[0, -1] for lg, _ in pre]).float(),
-                     [c for _, c in pre], tokens)
+                     [c for _, c in pre], tokens, log)
     return out
+
+
+def route_diffs(log_a, log_b, n_requests):
+    """Per request, the (token, layer) top-k expert sets that differ
+    between two runs' routing logs, and the number compared; the
+    engine's repeated prefills are left out."""
+    check(len(log_a) == len(log_b) and
+          all(a[0] == b[0] for a, b in zip(log_a, log_b)),
+          "the two paths routed different forwards")
+    diff, total = [0] * n_requests, [0] * n_requests
+    for (lab, a), (_, b) in zip(log_a, log_b):
+        if lab[0] == "again":
+            continue
+        rows = ((a.sort(dim=-1).values != b.sort(dim=-1).values)
+                .any(dim=-1).cpu().numpy())
+        owners = [lab[1]] * len(rows) if lab[0] == "prefill" else \
+            [lab[1].get(slot) for slot in range(len(rows))]
+        for owner, differs in zip(owners, rows):
+            if owner is not None:
+                diff[owner] += int(differs)
+                total[owner] += 1
+    return diff, total
 
 
 def unit_scores(model) -> None:
     """Scale wq and wk to their true fan-in, 1/sqrt(d_model), in place.
 
     ``repro/models/layers.py::param`` takes the fan-in of a 3-D weight
-    from its second-to-last axis, the head count: at full width wq's
-    entries have std 1/sqrt(32) and wk's 1/sqrt(8), so a score q.k /
+    from its second-to-last axis, the (padded) head count: at
+    h2o-danube-1.8b's width wq's entries have std 1/sqrt(32) and wk's
+    1/sqrt(8) (granite-moe-3b-a800m: its 24 query heads padded to 32, and
+    8), so a score q.k /
     sqrt(80) has a std near 159 and the softmax is all but one-hot. A
     perturbation at rounding level then grows from layer to layer (the
     parity phase prints how fast), and no two computations of the model
@@ -629,7 +769,8 @@ def unit_scores(model) -> None:
     cfg = model.cfg
     with torch.no_grad():
         for b in model.blocks:
-            b.mixer.wq.mul_((cfg.num_heads / cfg.d_model) ** 0.5)
+            b.mixer.wq.mul_((attention.padded_heads(cfg.num_heads)
+                             / cfg.d_model) ** 0.5)
             b.mixer.wk.mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
 
 
@@ -655,7 +796,7 @@ def lm_parity_phase(device) -> dict:
             unit_scores(model)
         both = _serve_both(model, prompts, max_new=8 if scale == "unit"
                            else 0)
-        (lk, ck, tk), (lp, cp, tp) = both["kernel"], both["plain"]
+        (lk, ck, tk, _), (lp, cp, tp, _) = both["kernel"], both["plain"]
         check(bool(torch.isfinite(lk).all()) and
               lk.shape == (4, cfg.vocab_size),
               f"{cdt} prefill logits {tuple(lk.shape)}")
@@ -684,20 +825,83 @@ def lm_parity_phase(device) -> dict:
                   f"{cdt}: a first token differs")
         out[f"{cdt}_{scale}"] = row
         del model, both, ck, cp
-        torch.cuda.empty_cache()
+        free_memory()
     return out
 
 
-# -- phase 7: the LM main path, serving h2o-danube-1.8b -----------------------
+def moe_parity_phase(device) -> dict:
+    """granite-moe-3b-a800m at full width and depth, random weights from
+    one CUDA generator seed with unit-variance scores (F3), kernel path
+    against plain path, float32 then bfloat16. A near-tie at the k-th
+    expert can flip a route between two computations that differ by
+    rounding, which changes a token's output by O(gate weight); so the
+    phase counts the (token, layer) top-8 expert sets that differ. In
+    float32 at most ``ROUTE_LIMIT`` of them may, and the requests whose
+    routes all agree keep their prefill logits within 1e-3 and their
+    greedy tokens identical. In bfloat16 it reports."""
+    out = {}
+    for cdt in ("float32", "bfloat16"):
+        cfg = get_config(MOE_ARCH).scaled(compute_dtype=cdt)
+        prompts = [np.random.default_rng(s).integers(0, cfg.vocab_size, n)
+                   for s, n in enumerate((5, 77, 1031, 2047))]
+        t0 = time.perf_counter()
+        model = tf.init_model(cfg, torch.Generator(device=device)
+                              .manual_seed(0), device)
+        t_init = time.perf_counter() - t0
+        unit_scores(model)
+        both = _serve_both(model, prompts, max_new=8)
+        (lk, _, tk, rk), (lp, _, tp, rp) = both["kernel"], both["plain"]
+        check(bool(torch.isfinite(lk).all()) and
+              lk.shape == (4, cfg.vocab_size),
+              f"{cdt} prefill logits {tuple(lk.shape)}")
+        diff, total = route_diffs(rk, rp, len(prompts))
+        share = sum(diff) / sum(total)
+        dlogit = (lk - lp).abs().max(dim=-1).values.tolist()
+        agree = [sum(a == b for a, b in zip(x, y)) / len(y)
+                 for x, y in zip(tk, tp)]
+        clean = [r for r in range(len(prompts)) if diff[r] == 0]
+        row = {"max_abs_dlogit": max(dlogit),
+               "rel_dlogit": max(dlogit) / float(lp.abs().max()),
+               "dlogit_by_request": dlogit, "token_agreement_by_request":
+               agree, "routes_compared": sum(total),
+               "routes_differing": sum(diff), "route_share": share,
+               "routes_differing_by_request": diff}
+        print(f"parity {MOE_ARCH} {cdt}, unit scores ({cfg.num_layers}L "
+              f"d{cfg.d_model}, {cfg.num_experts} experts top-"
+              f"{cfg.top_k}, init {t_init:.2f} s): prefill max|dlogit| by "
+              f"request " + " ".join(f"{x:.3e}" for x in dlogit) +
+              f", / max|logit| {row['rel_dlogit']:.3e}; greedy tokens "
+              f"agree by request {agree}; top-{cfg.top_k} expert sets "
+              f"differing {sum(diff)} of {sum(total)} (token, layer) "
+              f"routes = {share:.2e}, by request {diff}; kernel {tk[1]} "
+              f"plain {tp[1]}")
+        if cdt == "float32":
+            check(share <= ROUTE_LIMIT, f"float32: {share:.2e} of the "
+                  f"routes differ (limit {ROUTE_LIMIT})")
+            for r in clean:
+                check(dlogit[r] <= LOGIT_TOL,
+                      f"float32 logits of request {r} differ by "
+                      f"{dlogit[r]}")
+                check(tk[r] == tp[r], f"float32 greedy tokens of request "
+                      f"{r} differ")
+        out[cdt] = row
+        del model, both
+        free_memory()
+    return out
 
-def serve_phase(device, trace: bool = False) -> dict:
+
+# -- phase 7: the LM main path, serving a model ------------------------------
+
+def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
     """16 requests submitted at once to ``ServeEngine`` (8 slots, 4096
-    ring rows) serving the published h2o-danube-1.8b (bfloat16) with
-    random weights: prompts of 128-2048 tokens, 64 greedy tokens each.
-    Host wall of each prefill and each decode tick (each ends in the
-    sampler's copy to the host, so the card has finished), time to
-    first token per request, and the LM kernels' launches."""
-    cfg = get_config(LM_ARCH)
+    ring rows) serving the published ``arch`` (h2o-danube-1.8b or
+    granite-moe-3b-a800m, bfloat16) with random weights: prompts of
+    128-2048 tokens, 64 greedy tokens each. Host wall of each prefill
+    and each decode tick (each ends in the sampler's copy to the host,
+    so the card has finished), time to first token per request, and the
+    LM kernels' launches: the model's kernels all launched, the grouped
+    expert matmul 3 times per MoE layer per forward."""
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     model = tf.init_model(cfg, torch.Generator(device=device).manual_seed(0),
                           device)
@@ -729,7 +933,8 @@ def serve_phase(device, trace: bool = False) -> dict:
     profiler = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]) \
         if trace else contextlib.nullcontext()
-    for f in (rms.rmsnorm, fa.flash_attention, da.decode_attention):
+    for f in (rms.rmsnorm, fa.flash_attention, da.decode_attention,
+              gmm.moe_gmm):
         f.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -742,14 +947,21 @@ def serve_phase(device, trace: bool = False) -> dict:
           all(len(res[r]) == 64 for r in rids), "not every request finished")
     check(all(0 <= t < cfg.vocab_size for r in rids for t in res[r]),
           "a token outside the vocabulary")
-    check(all(launches.values()), f"an LM kernel was not launched: {launches}")
+    n_moe = sum(cfg.pattern[i % len(cfg.pattern)].ffn == "moe"
+                for i in range(cfg.num_layers))
+    forwards = len(first) + wall["ticks"]
+    check(all(v for k, v in launches.items() if k != "moe_gmm") and
+          launches["moe_gmm"] == 3 * n_moe * forwards,
+          f"LM kernel launches {launches} over {forwards} forwards of "
+          f"{n_moe} MoE layers")
     ttft = np.array([first[r] for r in rids])
     out = {
         "requests": len(rids), "prompt_tokens": int(lens.sum()),
         "new_tokens": sum(len(res[r]) for r in rids), "wall_s": t_wall,
         "prefill_s": wall["prefill"], "decode_s": wall["decode"],
-        "ticks": wall["ticks"],
-        "prefill_tok_per_s": float(lens.sum()) / wall["prefill"],
+        "ticks": wall["ticks"], "ms_per_tick": 1e3 * wall["decode"] /
+        wall["ticks"], "prefill_tok_per_s": float(lens.sum()) /
+        wall["prefill"],
         "decode_tok_per_s": wall["decoded"] / wall["decode"],
         "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": float(ttft.max()),
         "launches": launches,
@@ -758,27 +970,29 @@ def serve_phase(device, trace: bool = False) -> dict:
     if trace:
         out.update(device_busy(profiler, (
             ("rmsnorm", "rmsnorm_rows"), ("flash_attention", "flash_fwd"),
-            ("decode_attention", "decode_"))))
+            ("decode_attention", "decode_"), ("moe_gmm", "gmm_tile"))))
         if "device_busy_s" in out:
             out["busy_share"] = out["device_busy_s"] / t_wall
     label = "traced serve" if trace else "serve"
-    print(f"{label} {LM_ARCH} ({cfg.compute_dtype}, {cfg.num_layers}L "
+    print(f"{label} {arch} ({cfg.compute_dtype}, {cfg.num_layers}L "
           f"d{cfg.d_model}, 8 slots x 4096): "
           f"{out['requests']} requests, {out['prompt_tokens']} prompt + "
           f"{out['new_tokens']} new tokens in {t_wall:.3f} s wall; prefill "
           f"{out['prefill_s']:.3f} s = {out['prefill_tok_per_s']:.1f} tok/s; "
           f"decode {out['decode_s']:.3f} s over {out['ticks']} ticks = "
-          f"{out['decode_tok_per_s']:.1f} tok/s; TTFT p50 "
-          f"{out['ttft_p50_s']:.3f} s, max {out['ttft_max_s']:.3f} s; "
-          f"launches {launches}")
+          f"{out['decode_tok_per_s']:.1f} tok/s, {out['ms_per_tick']:.1f} ms "
+          f"a tick; TTFT p50 {out['ttft_p50_s']:.3f} s, max "
+          f"{out['ttft_max_s']:.3f} s; peak memory {out['peak_mem_gb']:.2f} "
+          f"GB; launches {launches}")
     del eng, model
-    torch.cuda.empty_cache()
+    free_memory()
     return out
 
 
 LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:38",
                "flash_attention": "src/repro/kernels/flash_attention.py:118",
-               "decode_attention": "src/repro/kernels/decode_attention.py:71"}
+               "decode_attention": "src/repro/kernels/decode_attention.py:71",
+               "moe_gmm": "src/repro/kernels/moe_gmm.py:50"}
 
 
 def lm_line(name, rows, launches, label) -> dict:
@@ -793,6 +1007,20 @@ def lm_line(name, rows, launches, label) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}}
+
+
+def serve_lm(device, arch: str) -> dict:
+    """``arch`` served untraced (the returned numbers and launches), then
+    once more under the profiler for the card's busy share."""
+    serve = serve_phase(device, arch=arch)
+    print(f"serve {arch}: " + json.dumps(serve))
+    traced = serve_phase(device, trace=True, arch=arch)
+    print(f"traced serve {arch}: " + json.dumps(traced))
+    busy = traced.get("device_busy_s")
+    print(f"device busy share of the traced serve of {arch}: " +
+          (f"{traced['busy_share']:.4f} ({busy:.3f} s of "
+           f"{traced['wall_s']:.2f} s wall)" if busy else "not measured"))
+    return serve
 
 
 def main() -> int:
@@ -823,19 +1051,17 @@ def main() -> int:
            else "not measured") +
           f"; the rerun repeats the simulated results: {same}")
     # the LM zoo's path: its kernels at the served shapes, the whole
-    # model against its plain path, then h2o-danube-1.8b served, untraced
-    # and once more under the profiler
+    # model against its plain path, then the model served, untraced and
+    # once more under the profiler; h2o-danube-1.8b, then
+    # granite-moe-3b-a800m (each phase frees its model before the next)
     lm_rows = lm_kernel_phase(device)
     lm_parity_phase(device)
-    serve = serve_phase(device)
-    print("serve: " + json.dumps(serve))
-    traced_serve = serve_phase(device, trace=True)
-    print("traced serve: " + json.dumps(traced_serve))
-    busy = traced_serve.get("device_busy_s")
-    print("device busy share of the traced serve: " +
-          (f"{traced_serve['busy_share']:.4f} ({busy:.3f} s of "
-           f"{traced_serve['wall_s']:.2f} s wall)" if busy
-           else "not measured"))
+    serve = serve_lm(device, LM_ARCH)
+    lm_rows.update(moe_kernel_phase(device))
+    lm_rows.update(lm_kernel_phase(device, MOE_ARCH, MOE_RMS_SHAPES,
+                                   MOE_FLASH_SHAPES))
+    moe_parity_phase(device)
+    moe_serve = serve_lm(device, MOE_ARCH)
     # the kernel's line: one 1024-frame chunk of the full-width operator,
     # its five conv layers (the main path's largest dispatch); the bound
     # is the larger of their summed bytes and summed operations' times
@@ -857,7 +1083,9 @@ def main() -> int:
     }] + [lm_line(name, lm_rows, serve["launches"][name], label)
           for name, label in (("rmsnorm", "2048x2560 bfloat16"),
                               ("flash_attention", "B=1 S=2048 bfloat16"),
-                              ("decode_attention", "bfloat16"))]}))
+                              ("decode_attention", "bfloat16"))] +
+        [lm_line("moe_gmm", lm_rows, moe_serve["launches"]["moe_gmm"],
+                 "C=512 1536->512 bfloat16")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

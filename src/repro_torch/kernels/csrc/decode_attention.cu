@@ -208,6 +208,7 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
   switch (H / KV) {
     case 1: err = launch_split<T, 1>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
     case 2: err = launch_split<T, 2>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
+    case 3: err = launch_split<T, 3>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
     case 4: err = launch_split<T, 4>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
     case 8: err = launch_split<T, 8>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
     default: return (int)cudaErrorInvalidValue;
@@ -227,7 +228,7 @@ extern "C" int decode_attention_split_rows() { return kSplitRows; }
 // dtype: 0 float32, 1 bfloat16; pos: int32 (B,) or null for all rows
 // valid. Launches both passes on `stream` and returns cudaGetLastError();
 // 0 means launched. The caller (kernels/decode_attention.py) has checked
-// shapes (D % 8 == 0, D <= 256, H / KV in {1, 2, 4, 8}), types,
+// shapes (D % 8 == 0, D <= 256, H / KV in {1, 2, 3, 4, 8}), types,
 // contiguity and 16-byte alignment.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* pos,

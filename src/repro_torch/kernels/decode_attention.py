@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-GROUPS = (1, 2, 4, 8)          # query heads per kv head the kernel compiles
+GROUPS = (1, 2, 3, 4, 8)       # query heads per kv head the kernel compiles
 SIGNATURES = {
     "decode_attention_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
     [ctypes.c_float, ctypes.c_void_p],

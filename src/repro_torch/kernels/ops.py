@@ -5,9 +5,10 @@ on the card unless the caller asks for the CPU, and never quietly on the
 CPU when there is no card. ``conv_scorer_fn`` gives the scoring runtime
 its conv scorer once, when the runtime is built.
 
-``rmsnorm``, ``attention`` and ``decode_attention`` are what the LM
-zoo's model calls for its norms, its prefill attention and its decode
-attention (the JAX package's ``use_pallas`` hot paths): each is the
+``rmsnorm``, ``attention``, ``decode_attention`` and ``moe_gmm`` are
+what the LM zoo's model calls for its norms, its prefill attention, its
+decode attention and its MoE expert products (the JAX package's
+``use_pallas`` hot paths): each is the
 kernel's wrapper, which sends a CPU tensor to the plain version and
 launches the CUDA kernel on a CUDA tensor, or raises.
 """
@@ -21,6 +22,7 @@ import torch
 from repro_torch.kernels import conv_scorer as _conv
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import rmsnorm as _rms
 
 Device = Union[str, torch.device, None]
@@ -50,3 +52,4 @@ def conv_scorer_fn(device: Device = None, *, stride: int = 2) -> Callable:
 rmsnorm = _rms.rmsnorm
 attention = _fa.flash_attention
 decode_attention = _dec.decode_attention
+moe_gmm = _gmm.moe_gmm

@@ -125,3 +125,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", p, expand_kv(v, H).float())
     return out.to(q.dtype)
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul: x (E, C, d) @ w (E, d, f) -> (E, C, f), in float32
+    and rounded once to x's type (``repro/kernels/ref.py::moe_gmm``)."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

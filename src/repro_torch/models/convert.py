@@ -7,7 +7,9 @@ stacked over periods on a leading ``layer`` axis, and the query heads
 are padded to the JAX package's tensor-parallel multiple. It unstacks the
 layer axis (layer ``p * len(pattern) + j`` is period p's position j) and
 keeps only the real query heads, whose padded partners the JAX model
-masks to exactly zero.
+masks to exactly zero. An MoE FFN keeps its first ``num_experts``
+experts and router columns, the JAX package's padded experts being
+dead (never routed to); the tree must hold ``padded_experts`` of them.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import Device, resolve_device
-from repro_torch.models import attention
+from repro_torch.models import attention, moe
 from repro_torch.models.transformer import Transformer, check_supported
 
 
@@ -44,11 +46,19 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
         if np.shape(mix["wq"])[-2] != hp:
             raise ValueError(f"wq has {np.shape(mix['wq'])[-2]} heads; the "
                              f"JAX package pads {h} to {hp}")
-        weights["layers"].append({
-            "norm1": _t(blk["norm1"]["scale"][p]),
-            "norm2": _t(blk["norm2"]["scale"][p]),
-            "wq": _t(mix["wq"][p][:, :h]), "wk": _t(mix["wk"][p]),
-            "wv": _t(mix["wv"][p]), "wo": _t(mix["wo"][p][:h]),
-            "wg": _t(ffn["wg"][p]), "wu": _t(ffn["wu"][p]),
-            "ffn_wo": _t(ffn["wo"][p])})
+        w = {"norm1": _t(blk["norm1"]["scale"][p]),
+             "norm2": _t(blk["norm2"]["scale"][p]),
+             "wq": _t(mix["wq"][p][:, :h]), "wk": _t(mix["wk"][p]),
+             "wv": _t(mix["wv"][p]), "wo": _t(mix["wo"][p][:h])}
+        if cfg.pattern[j].ffn == "moe":
+            w["moe"] = moe.real_experts(
+                {n: _t(ffn[n][p]) for n in ("router", "wg", "wu", "wo")},
+                cfg.num_experts)
+            if "shared" in ffn:
+                w["moe"]["shared"] = {n: _t(ffn["shared"][n][p])
+                                      for n in ("wg", "wu", "wo")}
+        else:
+            w.update(wg=_t(ffn["wg"][p]), wu=_t(ffn["wu"][p]),
+                     ffn_wo=_t(ffn["wo"][p]))
+        weights["layers"].append(w)
     return Transformer(cfg, weights, device)

@@ -44,7 +44,12 @@ class FFN(nn.Module):
         self.wg, self.wu, self.wo = frozen(wg), frozen(wu), frozen(wo)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (F.silu(x @ self.wg) * (x @ self.wu)) @ self.wo
+        return swiglu(x, self.wg, self.wu, self.wo)
+
+
+def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+           wo: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ wg) * (x @ wu)) @ wo
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

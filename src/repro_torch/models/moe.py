@@ -1,0 +1,180 @@
+"""Mixture-of-Experts FFN with sort-based, static-shape dispatch.
+
+Ported from ``repro/models/moe.py``, step for step: route each token to
+its top-k experts, stable-sort the (token, expert) entries by expert,
+place them in a per-expert capacity buffer (E, C, d), run the grouped
+SwiGLU through ``ops.moe_gmm`` (the CUDA kernel on the card), and add
+each expert's output back into its token, scaled by the router weight.
+Every shape follows from the token count, so nothing waits for the
+card before the sampler's copy.
+
+The JAX package pads the experts to its 16-way expert-parallel axis
+(``padded_experts``) and pins the dead experts' router logits to -1e30,
+so their probabilities are exactly 0 and they are never routed to. The
+port runs on one card and keeps only the real experts
+(``real_experts``), which changes no output and no aux loss. It runs
+one dispatch group: ``repro/parallel/ops.py::data_group_count`` is 1
+without a mesh, and ``shard`` is a no-op there.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+
+
+def padded_experts(e: int, ep: int = 16) -> int:
+    """The JAX package's expert count: e rounded up to a multiple of ep
+    (only if not already divisible)."""
+    return -(-e // ep) * ep if e % ep else e
+
+
+def real_experts(p: Mapping[str, torch.Tensor],
+                 n_experts: int) -> Dict[str, torch.Tensor]:
+    """The first ``n_experts`` experts and router columns of the JAX
+    package's padded MoE weights (router (d, ep), wg and wu (ep, d, f),
+    wo (ep, f, d)); raises unless ep is ``padded_experts(n_experts)``.
+    Other entries (``shared``) pass through."""
+    ep = p["router"].shape[-1]
+    if ep != padded_experts(n_experts) or any(
+            p[n].shape[0] != ep for n in ("wg", "wu", "wo")):
+        raise ValueError(f"the MoE weights hold {ep} experts; the JAX "
+                         f"package pads {n_experts} to "
+                         f"{padded_experts(n_experts)}")
+    out = dict(p)
+    out["router"] = p["router"][:, :n_experts].clone()
+    for n in ("wg", "wu", "wo"):
+        out[n] = p[n][:n_experts].clone()
+    return out
+
+
+def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """x (T, d) and router (d, E) in the compute type -> (logits, probs,
+    gate_w, gate_i): float32 logits and softmax, the top-k weights
+    renormalised to sum to 1, and their experts (T, k). Ties go to the
+    lower expert, as ``jax.lax.top_k`` breaks them: a stable descending
+    sort keeps equal probabilities in expert order."""
+    logits = (x @ router).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, gate_i = vals[:, :top_k], idx[:, :top_k]
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return logits, probs, gate_w, gate_i
+
+
+def aux_losses(logits: torch.Tensor, probs: torch.Tensor,
+               gate_i: torch.Tensor, n_experts: int):
+    """Switch-style load-balance loss and router z-loss, float32, from
+    ``route``'s logits, probabilities and experts."""
+    T, E = probs.shape
+    density = probs.mean(dim=0)
+    top1 = torch.zeros(E, dtype=torch.float32, device=probs.device)
+    top1.index_add_(0, gate_i[:, 0],                 # counts: exact sums
+                    torch.ones(T, dtype=torch.float32, device=probs.device))
+    lb_loss = (top1 / T * density).sum() * n_experts
+    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
+    return lb_loss, z_loss
+
+
+def moe_forward(x: torch.Tensor, params: Mapping, *, n_experts: int,
+                top_k: int, capacity_factor: float
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """x (B, S, d) in the compute type -> (y (B, S, d), (lb_loss,
+    z_loss)), as ``repro/models/moe.py::moe_forward``. ``params``:
+    ``router`` (d, E), ``wg``, ``wu`` (E, d, f), ``wo`` (E, f, d), the
+    real experts only, in the compute type; optional ``shared`` with a
+    dense SwiGLU's ``wg``, ``wu``, ``wo``."""
+    y, routing = moe_ffn(x, params, n_experts=n_experts, top_k=top_k,
+                         capacity_factor=capacity_factor)
+    return y, aux_losses(*routing, n_experts)
+
+
+def moe_ffn(x: torch.Tensor, params: Mapping, *, n_experts: int,
+            top_k: int, capacity_factor: float):
+    """``moe_forward``'s output and its routing (logits, probs, gate_i)
+    instead of the aux losses, which serving drops (the JAX package's
+    jitted decode never computes them; eager PyTorch would)."""
+    B, S, d = x.shape
+    router = params["router"]
+    E = router.shape[-1]
+    if E != n_experts:
+        raise ValueError(f"the router has {E} experts, the config "
+                         f"{n_experts}: load the real experts only")
+    cdt = x.dtype
+    T, k = B * S, top_k
+    xf = x.reshape(T, d)
+    logits, probs, gate_w, gate_i = route(xf, router, k)
+
+    # ---- sort-based dispatch into per-expert capacity rows ----
+    dev = x.device
+    e_flat = gate_i.reshape(T * k)                         # token-major
+    order = torch.argsort(e_flat, stable=True)
+    se = e_flat[order]
+    st = torch.div(order, k, rounding_mode="floor")        # tokens
+    sw = gate_w.reshape(T * k)[order]
+    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
+        0, e_flat, torch.ones_like(e_flat))
+    starts = counts.cumsum(0) - counts
+    pos = torch.arange(T * k, device=dev) - starts[se]
+    cap = max(8, int(-(-T * k * capacity_factor // max(n_experts, 1))))
+    keep = pos < cap
+    # expert e's capacity rows are buf[e * cap: (e + 1) * cap]; dropped
+    # entries go to the trash row E * cap, which is cut off
+    slot = torch.where(keep, se * cap + pos, E * cap)
+    buf = torch.zeros(E * cap + 1, d, dtype=cdt, device=dev)
+    buf[slot] = xf[st] * keep[:, None].to(cdt)
+    buf = buf[:E * cap].view(E, cap, d)
+
+    h = F.silu(ops.moe_gmm(buf, params["wg"])) * ops.moe_gmm(buf,
+                                                             params["wu"])
+    out_buf = ops.moe_gmm(h, params["wo"]).view(E * cap, d)
+
+    gathered = out_buf[se * cap + pos.clamp_max(cap - 1)]
+    contrib = gathered * (sw * keep).to(cdt)[:, None]      # sorted order
+    # each token's k contributions, added in the compute type in sorted
+    # order (ascending expert), as the JAX package's scatter-add runs
+    # them; a fixed order, where index_add_ on the card would not be
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * k, device=dev)
+    rows = torch.sort(inv.view(T, k), dim=1).values
+    y = contrib[rows[:, 0]]
+    for j in range(1, k):
+        y = y + contrib[rows[:, j]]
+
+    if "shared" in params:
+        s = params["shared"]
+        y = y + layers.swiglu(xf, s["wg"], s["wu"], s["wo"])
+    return y.reshape(B, S, d), (logits, probs, gate_i)
+
+
+class MoE(nn.Module):
+    """The MoE FFN of a served block: weights in the compute type, the
+    real experts only (``real_experts``)."""
+
+    def __init__(self, w: Mapping, *, n_experts: int, top_k: int,
+                 capacity_factor: float):
+        super().__init__()
+        self.n_experts, self.top_k = n_experts, top_k
+        self.capacity_factor = capacity_factor
+        self.router = layers.frozen(w["router"])
+        self.wg, self.wu, self.wo = (layers.frozen(w[n])
+                                     for n in ("wg", "wu", "wo"))
+        self.shared = layers.FFN(**w["shared"]) if "shared" in w else None
+
+    def params(self) -> Dict:
+        p = {"router": self.router, "wg": self.wg, "wu": self.wu,
+             "wo": self.wo}
+        if self.shared is not None:
+            p["shared"] = {"wg": self.shared.wg, "wu": self.shared.wu,
+                           "wo": self.shared.wo}
+        return p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return moe_ffn(x, self.params(), n_experts=self.n_experts,
+                       top_k=self.top_k,
+                       capacity_factor=self.capacity_factor)[0]

@@ -2,8 +2,9 @@
 norm and the LM head.
 
 Ported from ``repro/models/transformer.py`` for the ``attn`` and
-``attn_window`` mixers and the ``dense`` FFN, which is what
-h2o-danube-1.8b is built of. The JAX package stacks each pattern
+``attn_window`` mixers and the ``dense`` and ``moe`` FFNs, which is what
+h2o-danube-1.8b and granite-moe-3b-a800m are built of. The JAX package
+stacks each pattern
 position's weights over periods and scans over them; the port holds one
 ``Block`` module per layer and loops over them, layer ``p * len(pattern)
 + j`` being period p's pattern position j.
@@ -26,15 +27,14 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import Device, resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
 Caches = List[Dict[str, torch.Tensor]]
 
 # where the mixers and FFNs this slice does not port are queued
 _LATER = {"mamba": "ROADMAP.md §2 item 4 (the missing modules)",
           "mlstm": "ROADMAP.md §2 item 4 (the missing modules)",
-          "slstm": "ROADMAP.md §2 item 4 (the missing modules)",
-          "moe": "ROADMAP.md §2 item 1 (granite-moe-3b-a800m serving)"}
+          "slstm": "ROADMAP.md §2 item 4 (the missing modules)"}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -50,7 +50,8 @@ def check_supported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: '{part}' blocks are not ported yet; "
                     f"see {_LATER[part]}")
-        if spec.mixer not in ("attn", "attn_window") or spec.ffn != "dense":
+        if spec.mixer not in ("attn", "attn_window") or \
+                spec.ffn not in ("dense", "moe"):
             raise ValueError(f"unknown block {spec}")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} "
@@ -58,6 +59,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
+    """One layer: attention, then the dense SwiGLU FFN, or the MoE FFN
+    when the weights hold ``moe`` (``models/moe.py``)."""
+
     def __init__(self, cfg: ModelConfig, window: Optional[int],
                  w: Dict[str, torch.Tensor]):
         super().__init__()
@@ -67,7 +71,12 @@ class Block(nn.Module):
             w["wq"], w["wk"], w["wv"], w["wo"], n_heads=cfg.num_heads,
             n_kv=cfg.num_kv_heads, window=window, rope_theta=cfg.rope_theta)
         self.norm2 = layers.RMSNorm(w["norm2"], cfg.norm_eps)
-        self.ffn = layers.FFN(w["wg"], w["wu"], w["ffn_wo"])
+        if "moe" in w:
+            self.ffn = moe.MoE(w["moe"], n_experts=cfg.num_experts,
+                               top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor)
+        else:
+            self.ffn = layers.FFN(w["wg"], w["wu"], w["ffn_wo"])
 
     def forward(self, x, positions, emit_cache: bool):
         out, (k, v) = self.mixer(self.norm1(x), positions)
@@ -96,7 +105,10 @@ class Transformer(nn.Module):
     query heads: ``embed`` (V, d), ``unembed`` (V, d) unless the config
     ties them, ``final_norm`` (d,), and per layer ``norm1``, ``norm2``
     (d,), ``wq`` (d, H, D), ``wk``, ``wv`` (d, KV, D), ``wo`` (H, D, d),
-    ``wg``, ``wu`` (d, F), ``ffn_wo`` (F, d)."""
+    ``wg``, ``wu`` (d, F), ``ffn_wo`` (F, d) for a dense FFN, or ``moe``
+    for an MoE FFN: ``router`` (d, E), ``wg``, ``wu`` (E, d, f), ``wo``
+    (E, f, d) of the E real experts, and optionally ``shared``
+    (``wg``, ``wu``, ``wo`` of a dense SwiGLU)."""
 
     def __init__(self, cfg: ModelConfig, weights: Dict, device: torch.device):
         super().__init__()
@@ -107,16 +119,19 @@ class Transformer(nn.Module):
         def cast(t):
             return t.to(device=device, dtype=cdt)
 
+        def cast_block(w):
+            return {n: (cast_block(t) if isinstance(t, dict) else
+                        t.to(device=device, dtype=torch.float32)
+                        if n.startswith("norm") else cast(t))
+                    for n, t in w.items()}
+
         self.embed = layers.frozen(cast(weights["embed"]))
         self.unembed = None if cfg.tie_embeddings else \
             layers.frozen(cast(weights["unembed"]))
         blocks = []
         for i, w in enumerate(weights["layers"]):
             spec = cfg.pattern[i % len(cfg.pattern)]
-            w = {n: (t.to(device=device, dtype=torch.float32)
-                     if n.startswith("norm") else cast(t))
-                 for n, t in w.items()}
-            blocks.append(Block(cfg, spec.window, w))
+            blocks.append(Block(cfg, spec.window, cast_block(w)))
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = layers.RMSNorm(
             weights["final_norm"].to(device), cfg.norm_eps)
@@ -147,13 +162,31 @@ def _draw(generator: torch.Generator, shape, scale: Optional[float] = None):
                        dtype=torch.float32) * scale
 
 
+def _draw_moe(cfg: ModelConfig, g: torch.Generator) -> Dict:
+    """One layer's MoE weights: ``repro/models/moe.py::init_moe``'s
+    shapes over the padded experts (the fan-in of wg, wu and wo is
+    shape[-2], their true fan-in), then the real experts kept."""
+    d, f = cfg.d_model, cfg.resolved_d_ff_expert
+    ep = moe.padded_experts(cfg.num_experts)
+    p = moe.real_experts({"router": _draw(g, (d, ep)),
+                          "wg": _draw(g, (ep, d, f)),
+                          "wu": _draw(g, (ep, d, f)),
+                          "wo": _draw(g, (ep, f, d))}, cfg.num_experts)
+    if cfg.num_shared_experts:
+        fs = f * cfg.num_shared_experts
+        p["shared"] = {"wg": _draw(g, (d, fs)), "wu": _draw(g, (d, fs)),
+                       "wo": _draw(g, (fs, d))}
+    return p
+
+
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device: Device = None) -> Transformer:
     """Random weights with the JAX package's distributions, drawn from
     ``generator`` (a CPU generator seeded 0 if None) on the generator's
     device, then cast to the compute type on ``device`` (the card
-    unless the caller asks for the CPU). The padded query heads' fan-in
-    is kept, so each weight has the JAX package's scale."""
+    unless the caller asks for the CPU). The padded query heads' and
+    experts' weights are drawn and dropped, so each weight has the JAX
+    package's scale and the real experts their own draws."""
     check_supported(cfg)
     device = resolve_device(device)
     g = generator if generator is not None else \
@@ -164,14 +197,17 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ones = torch.ones(d, dtype=torch.float32)
     weights = {"embed": _draw(g, (cfg.vocab_size, d), 1.0),
                "final_norm": ones, "layers": []}
-    for _ in range(cfg.num_layers):
-        weights["layers"].append({
-            "norm1": ones, "norm2": ones,
-            "wq": _draw(g, (d, hp, hd))[:, :h],
-            "wk": _draw(g, (d, kv, hd)), "wv": _draw(g, (d, kv, hd)),
-            "wo": _draw(g, (hp, hd, d))[:h],
-            "wg": _draw(g, (d, f)), "wu": _draw(g, (d, f)),
-            "ffn_wo": _draw(g, (f, d))})
+    for i in range(cfg.num_layers):
+        w = {"norm1": ones, "norm2": ones,
+             "wq": _draw(g, (d, hp, hd))[:, :h],
+             "wk": _draw(g, (d, kv, hd)), "wv": _draw(g, (d, kv, hd)),
+             "wo": _draw(g, (hp, hd, d))[:h]}
+        if cfg.pattern[i % len(cfg.pattern)].ffn == "moe":
+            w["moe"] = _draw_moe(cfg, g)
+        else:
+            w.update(wg=_draw(g, (d, f)), wu=_draw(g, (d, f)),
+                     ffn_wo=_draw(g, (f, d)))
+        weights["layers"].append(w)
     if not cfg.tie_embeddings:
         weights["unembed"] = _draw(g, (cfg.vocab_size, d), d ** -0.5)
     return Transformer(cfg, weights, device)

@@ -4,8 +4,8 @@ Ported from ``repro/serving/engine.py``. The engine owns ``slots``
 concurrent sequences: new requests claim free slots, prefill runs per
 request, each decode tick advances every slot at once, and a finished
 sequence frees its slot at once for a waiting request. On the card every
-norm, prefill attention and decode attention of the model runs a
-hand-written CUDA kernel (``kernels/csrc``).
+norm, prefill attention, decode attention and MoE expert product of the
+model runs a hand-written CUDA kernel (``kernels/csrc``).
 """
 from __future__ import annotations
 
@@ -147,6 +147,13 @@ class ServeEngine:
         return out
 
     def _tick(self, results: Dict[int, List[int]]) -> None:
+        """One decode step over every slot, idle slots included (they
+        feed token 0), as the JAX engine's jitted ``decode_step`` runs
+        it. The batching is part of the result: an MoE layer routes the
+        tokens of one forward together, and capacity drops make a
+        token's output depend on the others, so prefill stays per
+        request and the tick takes all slots, for the greedy tokens to
+        match the JAX engine's."""
         last = np.zeros((self.slots, 1), np.int64)
         for slot, r in self.active.items():
             if r is not None:

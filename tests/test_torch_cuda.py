@@ -18,6 +18,7 @@ from repro_torch.core import runtime as rt_mod  # noqa: E402
 from repro_torch.kernels import conv_scorer as cs, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -170,6 +171,7 @@ def test_flash_attention_kernel_matches_plain_version(
 @pytest.mark.parametrize("name", LM_DTYPES)
 @pytest.mark.parametrize("B,S,H,KV,D,pos", [
     (8, 4096, 32, 8, 80, [0, 1, 255, 256, 1000, 2047, 4095, 9000]),
+    (8, 4096, 24, 8, 64, [0, 1, 255, 256, 1000, 2047, 4095, 9000]),  # G = 3
     (3, 300, 4, 2, 16, [17, 299, 301]),
     (2, 64, 8, 8, 128, None),
 ])
@@ -188,6 +190,44 @@ def test_decode_attention_kernel_matches_plain_version(
     assert_allclose(got.float().cpu().numpy(),
                     ref.decode_attention(q, k, v, p).float().cpu().numpy(),
                     rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", {"float32": 1e-4, "bfloat16": 5e-2})
+@pytest.mark.parametrize("E,C,d,f", [
+    (40, 8, 1536, 512), (40, 8, 512, 1536),      # a decode tick
+    (40, 512, 1536, 512), (40, 512, 512, 1536),  # a 2048-token prefill
+    (40, 275, 1536, 512),                        # a ragged capacity
+    (3, 1, 40, 24),                              # K tail, ragged F
+])
+def test_moe_gmm_kernel_matches_plain_version(cuda, name, E, C, d, f):
+    dtype = LM_DTYPES[name][0]
+    tol = 1e-4 if name == "float32" else 5e-2
+    x = _randn((E, C, d), dtype, cuda, 7)
+    w = (_randn((E, d, f), torch.float32, cuda, 8) / d ** 0.5).to(dtype)
+    before = gmm.moe_gmm.launches
+    got = gmm.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert gmm.moe_gmm.launches == before + 1
+    assert got.dtype == dtype and got.shape == (E, C, f)
+    assert_allclose(got.float().cpu().numpy(),
+                    ref.moe_gmm(x, w).float().cpu().numpy(),
+                    rtol=tol, atol=tol)
+    # a row's result depends on neither C nor the other rows
+    head = gmm.moe_gmm(x[:, :1].contiguous(), w)
+    assert torch.equal(head, got[:, :1])
+
+
+def test_moe_gmm_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 8, 16, device=cuda)
+    w = torch.zeros(2, 16, 16, device=cuda)
+    with pytest.raises(TypeError):
+        gmm.moe_gmm(x.half(), w.half())
+    with pytest.raises(ValueError):
+        gmm.moe_gmm(x, w.cpu())                          # mixed devices
+    with pytest.raises(ValueError):
+        gmm.moe_gmm(x, torch.zeros(2, 16, 12, device=cuda))  # f % 8
+    with pytest.raises(ValueError):
+        gmm.moe_gmm(x.transpose(0, 1).contiguous().transpose(0, 1), w)
 
 
 def test_lm_kernels_reject_what_they_do_not_take(cuda):
@@ -240,3 +280,32 @@ def test_engine_serves_through_the_kernels(cuda):
     eng_cpu = ServeEngine(cpu, slots=2, cache_len=64, device="cpu")
     rid = eng_cpu.submit(np.arange(40) % cfg.vocab_size, max_new=4)
     assert eng_cpu.run()[rid] == out
+
+
+def test_engine_serves_granite_through_the_kernels(cuda):
+    """granite-moe-3b-a800m's smoke config on the card: each forward
+    makes three grouped expert products per layer through the kernel,
+    and the greedy tokens are the CPU plain path's."""
+    cfg = get_smoke_config("granite-moe-3b-a800m").scaled(remat=False)
+    model = tf.init_model(cfg, torch.Generator().manual_seed(0))
+    eng = ServeEngine(model, slots=2, cache_len=64)
+    counts = (gmm.moe_gmm.launches, fa.flash_attention.launches,
+              da.decode_attention.launches)
+    rid = eng.submit(np.arange(40) % cfg.vocab_size, max_new=4)
+    out = eng.run()[rid]
+    assert len(out) == 4
+    L = cfg.num_layers
+    assert gmm.moe_gmm.launches - counts[0] == 3 * L * 4
+    assert fa.flash_attention.launches - counts[1] == L
+    assert da.decode_attention.launches - counts[2] == L * 3
+    cpu = tf.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng_cpu = ServeEngine(cpu, slots=2, cache_len=64, device="cpu")
+    rid = eng_cpu.submit(np.arange(40) % cfg.vocab_size, max_new=4)
+    assert eng_cpu.run()[rid] == out
+    # the MoE layer never waits for the card: every shape follows from T
+    x = torch.randn(2, 9, cfg.d_model, device=cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.blocks[0].ffn(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

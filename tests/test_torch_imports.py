@@ -36,6 +36,8 @@ def test_no_jax_or_repro_import_in_the_port_source():
     assert {"repro_torch.kernels.build", "repro_torch.kernels.rmsnorm",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.decode_attention",
+            "repro_torch.kernels.moe_gmm", "repro_torch.models.moe",
+            "repro_torch.configs.granite_moe_3b_a800m",
             "repro_torch.configs.h2o_danube_1_8b",
             "repro_torch.models.transformer", "repro_torch.models.convert",
             "repro_torch.serving.engine"} <= set(MODULES)
@@ -88,7 +90,9 @@ def test_default_device_is_the_card(monkeypatch):
     from repro_torch.models.convert import params_from_jax
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("h2o-danube-1.8b")
+    moe_cfg = get_smoke_config("granite-moe-3b-a800m")
     for entry in (OperatorRuntime, lambda: transformer.init_model(cfg),
+                  lambda: transformer.init_model(moe_cfg),
                   lambda: transformer.init_caches(cfg, 1, 8),
                   lambda: params_from_jax(cfg, {})):
         with pytest.raises(RuntimeError, match="device='cpu'"):
