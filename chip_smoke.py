@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's five CUDA kernels from the sources in this checkout,
-all at once, then drives its paths. The ZC² query path: the conv kernel
+all at once, prints each kernel's registers, spills and shared memory,
+and counts the tensor-core instructions (HGMMA) in the SASS of the two
+whose bfloat16 path runs on them (grouped expert matmul, flash
+attention); then drives its paths. The ZC² query path: the conv kernel
 against its plain PyTorch version at every conv layer shape of the
 reduced operator family, the scoring runtime against the plain forward,
 and one Retrieval query for "bus" on the 6 h Banff scene, scored
@@ -97,6 +100,9 @@ MOE_FLASH_SHAPES = ((2048, torch.bfloat16), (2048, torch.float32))
 # products
 GMM_CAPS = (8, 32, 275, 512)
 GMM_DIMS = ((1536, 512), (512, 1536))
+# the kernels whose bf16 path runs on the tensor cores (wgmma fed by TMA),
+# with the name their bf16 kernels carry
+TC_KERNELS = {"moe_gmm": "gmm_wgmma", "flash_attention": "flash_fwd_wgmma"}
 
 
 class SmokeFailure(AssertionError):
@@ -180,9 +186,26 @@ def card_line() -> str:
 
 # -- phase 1: build -----------------------------------------------------------
 
+def demangle(names):
+    """C++ names of mangled kernel names, by ``c++filt`` where the host
+    has it; the anonymous namespace is left out."""
+    names = list(names)
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return dict(zip(names, names))
+    return {n: d.replace("(anonymous namespace)::", "")
+            for n, d in zip(names, out)}
+
+
 def build_phase() -> None:
     """Every kernel's nvcc build, all started together (one process per
-    source), then ptxas's registers, spills and shared memory for each."""
+    source); then ptxas's registers, spills and static shared memory for
+    each kernel, and the tensor-core instructions (``HGMMA``) in the SASS
+    of each kernel of the two redesigned sources: every bf16 kernel there
+    must hold some, the float32 ones run on the CUDA cores."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
@@ -190,10 +213,21 @@ def build_phase() -> None:
           f"{time.perf_counter() - t0:.3f} s")
     for name, path in paths.items():
         print(f"build: {path.relative_to(ROOT)}")
-        for line in build.logs.get(name, "").splitlines():
-            if ("registers" in line or "spill" in line or "smem" in line
-                    or "Compiling entry" in line):
-                print(f"  ptxas: {line.strip()}")
+        res = build.resources(build.logs.get(name, ""))
+        short = demangle(r["kernel"] for r in res)
+        for r in res:
+            print(f"  ptxas {short[r['kernel']]}: {r['registers']} "
+                  f"registers, {r['spill_stores']} B spill stores, "
+                  f"{r['spill_loads']} B spill loads, {r['smem']} B static "
+                  f"smem")
+    for name, tag in TC_KERNELS.items():
+        counts = build.sass_counts(name)
+        short = demangle(counts)
+        tc = {k: v for k, v in counts.items() if tag in k}
+        print(f"sass {name}: " + "; ".join(
+            f"{short[k]} HGMMA {v}" for k, v in counts.items()))
+        check(bool(tc) and all(tc.values()),
+              f"{name}: a bf16 kernel without HGMMA instructions {tc}")
 
 
 # -- phase 2: the kernel against its plain version ----------------------------
@@ -970,7 +1004,7 @@ def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
     if trace:
         out.update(device_busy(profiler, (
             ("rmsnorm", "rmsnorm_rows"), ("flash_attention", "flash_fwd"),
-            ("decode_attention", "decode_"), ("moe_gmm", "gmm_tile"))))
+            ("decode_attention", "decode_"), ("moe_gmm", "gmm_"))))
         if "device_busy_s" in out:
             out["busy_share"] = out["device_busy_s"] / t_wall
     label = "traced serve" if trace else "serve"

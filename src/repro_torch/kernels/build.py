@@ -6,7 +6,10 @@ and loads it with ``ctypes``; each kernel's wrapper gives the
 ``argtypes`` of its own C functions, which all return a CUDA error code.
 The library lives in ``build/repro_torch/`` under the repository root,
 keyed by a hash of the source and the flags, so a changed source is
-rebuilt. Nothing runs at import time. The helpers at the end are the
+rebuilt. Nothing runs at import time. ``resources`` reads ptxas's
+registers, spills and shared memory of each kernel from a build's log,
+and ``sass_counts`` counts an instruction (the tensor cores' ``HGMMA``)
+in each kernel of a built library. The helpers at the end are the
 checks every wrapper makes before it hands raw pointers to a kernel.
 """
 from __future__ import annotations
@@ -14,11 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -31,15 +35,17 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 logs: Dict[str, str] = {}   # nvcc's output of each build (registers, spills)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``): on the PATH, or
+    under ``$CUDA_HOME/bin``."""
+    found = shutil.which(name)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
+    path = Path(cuda_home) / "bin" / name
     if not path.exists():
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
-                           "first use and need the CUDA toolkit")
+        raise RuntimeError(f"{name} not found: the CUDA kernels are built "
+                           "on first use and need the CUDA toolkit")
     return str(path)
 
 
@@ -70,7 +76,7 @@ def build(name: str) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source(name))],
+            [_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, str(source(name))],
             capture_output=True, text=True, check=False)
         logs[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -95,6 +101,60 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def resources(log: str) -> List[dict]:
+    """Each kernel of an nvcc log (``-Xptxas -v``), in order: its mangled
+    name, registers a thread, spilled bytes stored and loaded, and static
+    shared memory in bytes (dynamic shared memory is a launch argument and
+    is not in the log)."""
+    out: List[dict] = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            out.append({"kernel": entry.group(1), "registers": 0,
+                        "spill_stores": 0, "spill_loads": 0, "smem": 0})
+            continue
+        if not out:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            out[-1]["spill_stores"] = int(spill.group(1))
+            out[-1]["spill_loads"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[-1]["registers"] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def count_opcodes(sass: str, opcode: str) -> Dict[str, int]:
+    """Instructions whose opcode starts with ``opcode`` in each function
+    of ``cuobjdump -sass`` output, keyed by mangled name."""
+    counts: Dict[str, int] = {}
+    fn = None
+    pattern = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?" +
+                         re.escape(opcode))
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = 0
+        elif fn is not None and pattern.search(line):
+            counts[fn] += 1
+    return counts
+
+
+def sass_counts(name: str, opcode: str = "HGMMA") -> Dict[str, int]:
+    """``count_opcodes`` over the built library of ``csrc/<name>.cu``
+    (built if need be): how many ``opcode`` instructions each of its
+    kernels holds, ``HGMMA`` being Hopper's warpgroup tensor-core
+    instruction."""
+    proc = subprocess.run([_tool("cuobjdump"), "-sass", str(build(name))],
+                          capture_output=True, text=True, check=True)
+    return count_opcodes(proc.stdout, opcode)
 
 
 def dtype_code(*tensors) -> int:

@@ -1,41 +1,58 @@
 // Grouped expert matmul, out[e] = x[e] @ w[e], for sm_90a.
 //
 // Replaces the Pallas TPU kernel repro/kernels/moe_gmm.py::moe_gmm (body
-// _gmm_kernel): x (E, C, K), w (E, K, F) -> out (E, C, F), all in float32
-// or all in bfloat16. The sum over K is float32 and is rounded to x's
-// type once, as the TPU kernel's float32 VMEM accumulator and the plain
-// version (kernels/ref.py::moe_gmm) do. C, the expert capacity, is any
-// integer (ragged); K and F are multiples of 8.
+// _gmm_kernel, pallas_call at l.50): x (E, C, K), w (E, K, F) -> out
+// (E, C, F), all in float32 or all in bfloat16. The sum over K is float32
+// and is rounded to x's type once, as the TPU kernel's float32 VMEM
+// accumulator and the plain version (kernels/ref.py::moe_gmm) do. C, the
+// expert capacity, is any integer (ragged); K and F are multiples of 8.
 //
 // Bound on an H100 SXM, at the shapes serving granite-moe-3b-a800m gives
 // it (E = 40 experts, d = 1536, expert hidden 512, bf16):
 //   * a decode tick (8 slots, capacity 8): 0.5 GFLOP against 62.9 MB of
-//     weights per call, so bytes: 18.8 us at 3.35 TB/s. Every weight
-//     element is read from device memory once per call: a block takes
-//     all C <= 64 rows of its expert, and the rows of a C tile with no
-//     capacity row skip their arithmetic;
+//     weights per call, so bytes: 18.8 us at 3.35 TB/s;
 //   * a 2048-token prefill (capacity 512): 32.2 GFLOP (32.6 us at 989
 //     TFLOP/s on the tensor cores) against 146.8 MB (43.8 us), so bytes
 //     again, at about 44 us.
+// Float32 on the CUDA cores could never come near either: 32.2 GFLOP at
+// 67 TFLOP/s is 0.48 ms.
 //
-// The design is the simple one that is right first. The TPU kernel
-// carries its K sum in VMEM scratch across a sequential grid dimension;
-// here a loop inside the block takes that dimension's place:
-//   * one block of 256 threads per (64-column F tile, 64-row C tile,
-//     expert);
-//   * the K loop stages 32-deep slices of x (transposed) and w through
-//     shared memory as float32, each thread loading 16 bytes of each;
-//     the next slice's loads are issued before the current slice's
-//     arithmetic, so they are in flight while it runs;
-//   * each thread keeps a 4 x 4 tile of float32 accumulators in
-//     registers and adds k = 0, 1, ..., K-1 in that order with fmaf, so
-//     a row's result depends on neither C nor the other rows (the port's
-//     batch-independence invariant);
-//   * the ragged C and F edges and a K tail are masked in the kernel:
-//     loads past them read zeros, stores past them are skipped.
-// Tensor cores (mma.sync, then wgmma with TMA), a skinny decode path and
-// skipping experts that received no rows are later work.
+// bfloat16 (the served path) runs on the tensor cores:
+//   * one block per (128-column F tile, 128-row C tile, expert), experts
+//     outermost so that the blocks of one expert share its weights in L2;
+//   * a producer warp brings 64-deep K slices of x (128 x 64, K-major)
+//     and w (64 x 128, as two 64-column boxes, F-major) by TMA into a
+//     ring of 3 stages in shared memory (32 KB a stage, 97 KB a block, so
+//     two blocks share an SM), each stage's arrival counted in bytes on an
+//     mbarrier, so that the next slices are in flight while the tensor
+//     cores work on one (4, 5 and 6 stages at one block an SM were no
+//     faster at C 512 and up to 23% slower at C 8);
+//   * two consumer warpgroups, 64 rows of C each, run wgmma m64n128k16
+//     (bf16 in, float32 accumulators in registers) on each stage as it
+//     arrives, x from the 128-byte-swizzled K-major tile and w as the
+//     MN-major ("transposed") B operand, and release the stage once its
+//     products are done;
+//   * the ragged C edge and a K tail arrive as zeros (TMA fills a box past
+//     the tensor's edge with zeros), and rows past C or columns past F are
+//     not stored; a warpgroup whose 64 rows all lie past C skips its
+//     products, so a decode tick (C 8) costs the weights' bytes and little
+//     more.
+// A row's sum is the same at every C: the tile shape, the 64-deep stages
+// and the 16-deep instructions are fixed, so row r is always reduced at
+// the same place of the same tile in the same order, and no split of K is
+// made. The skinny swap (F on M, C on N) would waste fewer tensor-core
+// rows at C 8, but the waste costs about 4 us of a call bound by 19 us of
+// bytes, and one variant for every C keeps a row's bits independent of C.
+//
+// float32 keeps the CUDA-core kernel below: the tensor cores take float32
+// only as TF32, which keeps about three digits and would break the 1e-4
+// agreement with the plain version. It stages 32-deep slices of x
+// (transposed) and w through shared memory, each thread keeping a 4 x 4
+// tile of float32 accumulators and adding k = 0, 1, ..., K-1 in that
+// order with fmaf, so a row's result depends on neither C nor the other
+// rows.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -136,13 +153,142 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* out, int E, int C, int K,
-           int F, cudaStream_t stream) {
+// -- bfloat16: TMA ring + wgmma -------------------------------------------
+
+namespace hp = repro_torch::hopper;
+
+constexpr int kTM = 128;                     // rows of C per block
+constexpr int kTN = 128;                     // columns of F per block
+constexpr int kTK = 64;                      // depth of a stage
+constexpr int kStages = 3;
+constexpr int kConsumers = 256;              // two warpgroups
+constexpr int kTcThreads = kConsumers + 32;  // and one producer warp
+constexpr int kXBytes = kTM * kTK * 2;       // 16 KB, 128 rows of 128 B
+constexpr int kWBox = kTK * 64 * 2;          // 8 KB, 64 k-rows of 128 B
+constexpr int kStageBytes = kXBytes + 2 * kWBox;
+constexpr int kTcSmem = kStages * kStageBytes + 1024;  // + alignment
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+    gmm_wgmma(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap wmap,
+              __nv_bfloat16* __restrict__ out, int C, int K, int F) {
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  extern __shared__ uint8_t dyn[];
+  // swizzled tiles sit on 1024-byte boundaries
+  uint8_t* base = dyn + ((1024 - (hp::smem_u32(dyn) & 1023)) & 1023);
+  const int e = blockIdx.z;
+  const int row0 = blockIdx.y * kTM;
+  const int col0 = blockIdx.x * kTN;
+  const int nk = (K + kTK - 1) / kTK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kConsumers);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {   // the producer warp; one lane starts the copies
+    if (threadIdx.x == kConsumers) {
+      hp::tma_prefetch(&xmap);
+      hp::tma_prefetch(&wmap);
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) hp::mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        uint8_t* st = base + s * kStageBytes;
+        hp::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        hp::tma_load_3d(st, &xmap, &full[s], i * kTK, row0, e);
+        hp::tma_load_3d(st + kXBytes, &wmap, &full[s], col0, i * kTK, e);
+        hp::tma_load_3d(st + kXBytes + kWBox, &wmap, &full[s], col0 + 64,
+                        i * kTK, e);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows row0 + 64 wg .. + 63 of the tile
+  const bool active = row0 + wg * 64 < C;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kStages;
+    hp::mbar_wait(&full[s], (i / kStages) & 1);
+    if (active) {
+      const uint8_t* st = base + s * kStageBytes;
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk) {
+        // x: K-major, rows of 128 B, 8-row groups 1024 B apart; the k16
+        // step moves 32 B along the row. w: MN-major, 64-column blocks
+        // 8 KB apart, 8-k-row groups 1024 B apart; the step moves 16 rows.
+        const uint64_t da =
+            hp::make_desc(st + wg * 64 * 128 + kk * 32, 16, 1024, 128);
+        const uint64_t db =
+            hp::make_desc(st + kXBytes + kk * 16 * 128, kWBox, 1024, 128);
+        hp::Wgmma<128>::ss<0, 1>(acc, da, db, 1);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();   // the previous stage's products are done
+      if (i > 0) hp::mbar_arrive(&empty[(i - 1) % kStages]);
+    } else {
+      hp::mbar_arrive(&empty[s]);
+    }
+  }
+  if (!active) return;
+  hp::wgmma_wait<0>();
+
+  const int t = threadIdx.x % 128;
+  const int r = row0 + wg * 64 + (t / 32) * 16 + (t % 32) / 4;
+  __nv_bfloat16* oe = out + (long long)e * C * F;
+#pragma unroll
+  for (int j = 0; j < kTN / 8; ++j) {
+    const int c = col0 + 8 * j + 2 * (t % 4);
+    if (c >= F) continue;   // F % 8 == 0, so c + 1 < F too
+    if (r < C)
+      *reinterpret_cast<uint32_t*>(oe + (long long)r * F + c) =
+          hp::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < C)
+      *reinterpret_cast<uint32_t*>(oe + (long long)(r + 8) * F + c) =
+          hp::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+int launch_bf16(const void* x, const void* w, void* out, int E, int C, int K,
+                int F, cudaStream_t stream) {
+  if ((C + kTM - 1) / kTM > 65535) return (int)cudaErrorInvalidValue;
+  // x as (K, C, E) and w as (F, K, E), innermost first
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xd[3] = {(cuuint64_t)K, (cuuint64_t)C, (cuuint64_t)E};
+  const cuuint64_t xs[2] = {(cuuint64_t)K * 2, (cuuint64_t)C * K * 2};
+  const cuuint32_t xb[3] = {kTK, kTM, 1};
+  const cuuint64_t wd[3] = {(cuuint64_t)F, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t ws[2] = {(cuuint64_t)F * 2, (cuuint64_t)K * F * 2};
+  const cuuint32_t wb[3] = {64, kTK, 1};
+  if (!hp::encode_bf16(&xmap, x, 3, xd, xs, xb) ||
+      !hp::encode_bf16(&wmap, w, 3, wd, ws, wb))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned int)((F + kTN - 1) / kTN),
+                  (unsigned int)((C + kTM - 1) / kTM), (unsigned int)E);
+  gmm_wgmma<<<grid, kTcThreads, kTcSmem, stream>>>(
+      xmap, wmap, (__nv_bfloat16*)out, C, K, F);
+  return (int)cudaGetLastError();
+}
+
+// -- float32: the CUDA cores ----------------------------------------------
+
+int launch_f32(const void* x, const void* w, void* out, int E, int C, int K,
+               int F, cudaStream_t stream) {
+  if ((C + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)((F + kBN - 1) / kBN),
                   (unsigned int)((C + kBM - 1) / kBM), (unsigned int)E);
-  gmm_tile<T><<<grid, kThreads, 0, stream>>>((const T*)x, (const T*)w,
-                                             (T*)out, C, K, F);
+  gmm_tile<float><<<grid, kThreads, 0, stream>>>(
+      (const float*)x, (const float*)w, (float*)out, C, K, F);
   return (int)cudaGetLastError();
 }
 
@@ -156,10 +302,9 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out,
                            int dtype, int E, int C, int K, int F,
                            void* stream) {
   if (E == 0 || C == 0 || F == 0) return 0;
-  if (E > 65535 || (C + kBM - 1) / kBM > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (E > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(x, w, out, E, C, K, F, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, out, E, C, K, F, s);
+  if (dtype == 0) return launch_f32(x, w, out, E, C, K, F, s);
+  if (dtype == 1) return launch_bf16(x, w, out, E, C, K, F, s);
   return (int)cudaErrorInvalidValue;
 }

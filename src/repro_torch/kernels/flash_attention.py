@@ -6,7 +6,13 @@ kernel: causal and/or sliding-window attention with an online softmax.
 It takes the compact GQA ``k, v`` (B, Sk, KV, D) and any lengths; the
 TPU kernel takes k, v expanded to every query head and lengths that are
 multiples of its blocks. Its source is ``csrc/flash_attention.cu``; the
-note there gives its design and its bound.
+note there gives its design and its bound. In bfloat16 it runs on
+Hopper's tensor cores (``wgmma`` for Q.K^T and P.V, K and V tiles brought
+by TMA), so it needs an ``sm_90a`` card, and rounds P to bfloat16 before
+P.V, as the model's own attention does (the plain version and the TPU
+kernel keep it float32; the two agree within 2e-2). In float32 it runs
+on the CUDA cores, since the tensor cores would round float32 operands
+to TF32.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.

@@ -4,7 +4,10 @@
 Pallas TPU kernel: ``x[e] @ w[e]`` for every expert e, x (E, C, d) and
 w (E, d, f) -> (E, C, f), summed in float32 and rounded once to x's
 type. Its source is ``csrc/moe_gmm.cu``; the note there gives its design
-and its bound.
+and its bound. In bfloat16 it runs on Hopper's tensor cores (``wgmma``,
+float32 accumulators) with its tiles brought by TMA, so it needs an
+``sm_90a`` card; in float32 it runs on the CUDA cores, since the tensor
+cores would round float32 operands to TF32.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
@@ -24,7 +27,9 @@ SIGNATURES = {"moe_gmm_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, d), w (E, d, f), both float32 or both bfloat16 -> (E, C,
     f) in x's type. C may be any size; on the card d and f are multiples
-    of 8. ``moe_gmm.launches`` counts the kernel's launches."""
+    of 8 (the rows of x and w are then whole 16-byte units, as TMA needs
+    them). A row's result depends on neither C nor the other rows.
+    ``moe_gmm.launches`` counts the kernel's launches."""
     code = build.dtype_code(x, w)
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
             or w.shape[1] != x.shape[2]:
@@ -39,8 +44,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     E, C, d = x.shape
     f = w.shape[2]
     if d % 8 or f % 8:
-        raise ValueError(f"the kernel takes d and f in multiples of 8; got "
-                         f"d {d}, f {f}")
+        raise ValueError(f"the kernel takes d and f in multiples of 8 "
+                         f"(16-byte rows for TMA); got d {d}, f {f}")
     build.check_launchable(x, w)
     out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     build.launch(build.load("moe_gmm", SIGNATURES).moe_gmm_fwd, x.device,

@@ -15,7 +15,7 @@ from numpy.testing import assert_allclose  # noqa: E402
 from repro_torch.configs.base import get_smoke_config  # noqa: E402
 from repro_torch.core import operators as ops  # noqa: E402
 from repro_torch.core import runtime as rt_mod  # noqa: E402
-from repro_torch.kernels import conv_scorer as cs, ref  # noqa: E402
+from repro_torch.kernels import build, conv_scorer as cs, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
@@ -137,6 +137,16 @@ def test_rmsnorm_kernel_matches_plain_version(cuda, name, rows, d):
                     rtol=tol, atol=tol)
 
 
+# the edges of the tensor-core path: every head dim at lengths around the
+# 64-row tile, with 1, 3 or 4 query heads per kv head and a window on
+# every other case
+FLASH_EDGES = [(1, S, S, 2 * (1, 3, 4)[i % 3], 2, D,
+                100 if i % 2 else None, 0)
+               for i, (S, D) in enumerate((S, D) for S in (1, 63, 64, 65, 257,
+                                                           2048)
+                                          for D in (16, 32, 64, 80, 128))]
+
+
 @pytest.mark.parametrize("name", LM_DTYPES)
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,D,window,q_offset", [
     (1, 257, 257, 32, 8, 80, 4096, 0),    # the served heads, ragged prompt
@@ -144,7 +154,9 @@ def test_rmsnorm_kernel_matches_plain_version(cuda, name, rows, d):
     (1, 100, 100, 4, 1, 64, 33, 0),       # narrow band across tiles
     (1, 40, 130, 2, 2, 128, None, 0),     # suffix-aligned q
     (1, 30, 90, 4, 4, 32, 20, 50),        # explicit q_offset
-])
+    (2, 65, 300, 6, 2, 64, 129, 0),       # Sq < Sk, a window cutting the band
+    (2, 65, 300, 6, 2, 80, 129, 100),
+] + FLASH_EDGES)
 def test_flash_attention_kernel_matches_plain_version(
         cuda, name, B, Sq, Sk, H, KV, D, window, q_offset):
     dtype, tol = LM_DTYPES[name]
@@ -196,9 +208,11 @@ def test_decode_attention_kernel_matches_plain_version(
 @pytest.mark.parametrize("E,C,d,f", [
     (40, 8, 1536, 512), (40, 8, 512, 1536),      # a decode tick
     (40, 512, 1536, 512), (40, 512, 512, 1536),  # a 2048-token prefill
-    (40, 275, 1536, 512),                        # a ragged capacity
+    (40, 275, 1536, 512), (40, 275, 512, 1536),  # a ragged capacity
     (3, 1, 40, 24),                              # K tail, ragged F
-])
+    (4, 70, 512, 520),                           # F 8 into a 128-wide tile
+] + [(40, C, d, f) for C in (1, 63, 64, 65)      # around a warpgroup's rows
+     for d, f in ((1536, 512), (512, 1536))])
 def test_moe_gmm_kernel_matches_plain_version(cuda, name, E, C, d, f):
     dtype = LM_DTYPES[name][0]
     tol = 1e-4 if name == "float32" else 5e-2
@@ -215,6 +229,17 @@ def test_moe_gmm_kernel_matches_plain_version(cuda, name, E, C, d, f):
     # a row's result depends on neither C nor the other rows
     head = gmm.moe_gmm(x[:, :1].contiguous(), w)
     assert torch.equal(head, got[:, :1])
+
+
+@pytest.mark.parametrize("name,tag,n_bf16", [
+    ("moe_gmm", "gmm_wgmma", 1), ("flash_attention", "flash_fwd_wgmma", 5)])
+def test_bf16_kernels_use_the_tensor_cores(cuda, name, tag, n_bf16):
+    """The SASS of every bf16 kernel holds HGMMA (wgmma) instructions;
+    the float32 kernels run on the CUDA cores and hold none."""
+    counts = build.sass_counts(name)
+    tc = {k: v for k, v in counts.items() if tag in k}
+    assert len(tc) == n_bf16 and all(v > 0 for v in tc.values()), counts
+    assert not any(v for k, v in counts.items() if tag not in k), counts
 
 
 def test_moe_gmm_rejects_what_it_does_not_take(cuda):
