@@ -3,22 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from the sources in this checkout,
+Builds the port's six CUDA kernels from the sources in this checkout,
 all at once, prints each kernel's registers, spills and shared memory,
 and counts the tensor-core instructions (HGMMA) in the SASS of the two
 whose bfloat16 path runs on them (grouped expert matmul, flash
 attention); then drives its paths. The ZC² query path: the conv kernel
 against its plain PyTorch version at every conv layer shape of the
-reduced operator family, the scoring runtime against the plain forward,
-and one Retrieval query for "bus" on the 6 h Banff scene, scored
-through the kernel, then once more under the CUDA profiler for the
-card's busy time. The LM serving path, for h2o-danube-1.8b (dense) and
+reduced operator family, and the scorer's dense and head kernel against
+its own, the scoring runtime against the plain forward and its three
+dispatch layers against each other (bit for bit), and one Retrieval
+query for "bus" on the 6 h Banff scene, scored through the kernels, then
+once more under the CUDA profiler for the card's busy time. The LM serving path, for h2o-danube-1.8b (dense) and
 then granite-moe-3b-a800m (MoE): the rmsnorm, flash-attention,
 decode-attention and (for granite) grouped expert matmul kernels against
 their plain versions at the shapes serving the model gives them, the
 full-width model on its kernel path against its plain path (float32,
 then bfloat16), and 16 requests served by ``ServeEngine`` through the
-kernels, untraced and then traced. It prints the results, the card's own
+kernels, untraced and then traced; and the attention and norm kernels at
+the head shapes and widths of the other accepted zoo configs
+(gemma3-12b's head dim 256, llama4-maverick-400b-a17b's 5 and
+granite-20b's 48 query heads per kv head, granite-20b's 6144 wide norm). It prints the results, the card's own
 wall-clock numbers, one JSON line with every kernel, and as its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
@@ -58,6 +62,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.kernels import scorer_head as sh  # noqa: E402
 from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -74,8 +79,7 @@ FAMILY = [(2, 8, 16, 25), (3, 16, 32, 50), (4, 16, 32, 50), (5, 32, 64, 100)]
 MAIN_OP = (5, 32, 64, 100)   # the full-width operator the query ships
 HOURS = 6.0                  # the corpus's default scene length
 KERNELS = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention",
-           "moe_gmm")
-LM_KERNELS = KERNELS[1:]
+           "moe_gmm", "scorer_head")
 LM_ARCH = "h2o-danube-1.8b"  # examples/serve_lm.py's default model
 MOE_ARCH = "granite-moe-3b-a800m"   # ROADMAP's MoE configuration
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
@@ -94,6 +98,20 @@ FLASH_SHAPES = ((257, torch.bfloat16), (257, torch.float32),
 # a prefill and of a tick, and a 2048-token prompt's attention
 MOE_RMS_SHAPES = ((2048, torch.bfloat16), (8, torch.bfloat16))
 MOE_FLASH_SHAPES = ((2048, torch.bfloat16), (2048, torch.float32))
+# the other accepted configs' head shapes and widths: gemma3-12b's 16/8
+# heads of 256 (window 1024), granite-20b's 48/1 and
+# llama4-maverick-400b-a17b's 40/8 heads of 128 in a decode tick, and
+# granite-20b's 6144-wide norm
+WIDE_HEAD_ARCH = "gemma3-12b"
+WIDE_FLASH_SHAPES = ((257, torch.bfloat16), (257, torch.float32),
+                     (2048, torch.bfloat16), (2048, torch.float32))
+WIDE_RMS_ARCH = "granite-20b"
+WIDE_RMS_SHAPES = ((2048, torch.bfloat16), (8, torch.bfloat16),
+                   (2048, torch.float32))
+GROUP_ARCHS = ("llama4-maverick-400b-a17b", "granite-20b")
+# the scorer's dense and head layers at the query's largest dispatch:
+# 1024 frames of op_L5c32s100 (4 x 4 x 32 features, 64 dense units)
+HEAD_SHAPE = (N, 512, 64)
 # grouped expert matmul: capacity C of a decode tick (8 slots), of
 # 128-, 1100- and 2048-token prompts (32, 275, 512: ceil(S*8*1.25/40),
 # at least 8), each for the gate/up (1536 -> 512) and down (512 -> 1536)
@@ -234,9 +252,11 @@ def build_phase() -> None:
 
 def kernel_phase(device) -> dict:
     """Every conv layer shape of the reduced family at N = 1024: the
-    kernel against ``ref.conv_scorer`` (<= 1e-4), then timed beside the
-    plain version and one cuDNN call (conv + bias, TF32 off: the
-    yardstick, never called by the port), in turns."""
+    kernel against ``ref.conv_scorer`` (<= 1e-4), an image's result the
+    same at N 1 and 33, then timed beside the plain version and one cuDNN
+    call (conv + bias, TF32 off: the yardstick, never called by the
+    port), in turns, with the launches queued ahead (``LEAD_CYCLES``), so
+    that a small layer's time is the card's and not the host's."""
     shapes = sorted({s for sig in FAMILY for s in layers(sig)},
                     key=lambda s: (-s[0], s[1], s[2]))
     rows = {}
@@ -255,6 +275,11 @@ def kernel_phase(device) -> dict:
         check(math.isfinite(err) and err <= KERNEL_TOL,
               f"conv_scorer H{h} {cin}->{cout}: max |err| {err} > "
               f"{KERNEL_TOL}")
+        for n in (1, 33):
+            check(torch.equal(cs.conv_scorer(x[-n:].clone(), w, b),
+                              got[-n:]),
+                  f"conv_scorer H{h} {cin}->{cout}: an image's result "
+                  f"depends on N ({n} against {N})")
         _, top, bottom = ref.same_pad(h, 2)
         xp = F.pad(x.permute(0, 3, 1, 2), (top, bottom) * 2  # H == W
                    ).contiguous(memory_format=torch.channels_last)
@@ -278,7 +303,8 @@ def kernel_phase(device) -> dict:
         for name in ("plain", "kernel", "library", "library", "kernel",
                      "plain"):
             t[name].append(time_ms({"plain": plain, "kernel": kernel,
-                                    "library": library}[name]))
+                                    "library": library}[name],
+                                   lead_cycles=LEAD_CYCLES))
         bound, by, flops, nbytes = conv_bound(N, h, cin, cout)
         row = {"max_abs_err": err, "ms": float(np.mean(t["kernel"])),
                "plain_ms": float(np.mean(t["plain"])),
@@ -294,7 +320,50 @@ def kernel_phase(device) -> dict:
               f"share of bound {bound / row['ms']:.3f}")
         del x, w, b, got, want, xp, w_oihw, lib_out
     torch.cuda.empty_cache()
+    chunk = [rows[s] for s in layers(MAIN_OP)]
+    t = {k: sum(r[k] for r in chunk) for k in ("ms", "library_ms")}
+    print(f"kernel conv_scorer, one {N}-frame chunk of op_L5c32s100 (5 "
+          f"layers): kernel {t['ms']:.4f} ms, cuDNN {t['library_ms']:.4f} "
+          f"ms, kernel / cuDNN {t['ms'] / t['library_ms']:.3f}")
     return rows
+
+
+def head_phase(device) -> dict:
+    """The scorer's dense and head kernel at the query's largest dispatch
+    (``HEAD_SHAPE``) against ``ref.scorer_head`` (<= 1e-5), a row's bits
+    independent of M, timed beside the plain version. No one PyTorch
+    call computes the two layers, so it has no library time."""
+    m, feat, dense = HEAD_SHAPE
+    g = torch.Generator(device=device).manual_seed(5)
+    h = torch.rand(m, feat, generator=g, device=device)
+    wd = torch.randn(feat, dense, generator=g, device=device) * \
+        (2.0 / feat) ** 0.5
+    bd = 0.1 * torch.randn(dense, generator=g, device=device)
+    wh = torch.randn(dense, 2, generator=g, device=device) / dense ** 0.5
+    bh = 0.1 * torch.randn(2, generator=g, device=device)
+    args = (h, wd, bd, wh, bh)
+    got = sh.scorer_head(*args)
+    err = float((got - ref.scorer_head(*args)).abs().max())
+    check(math.isfinite(err) and err <= SCORE_TOL,
+          f"scorer_head: max |err| {err} > {SCORE_TOL}")
+    check(torch.equal(sh.scorer_head(h[-20:].clone(), *args[1:]),
+                      got[-20:]), "scorer_head: a row depends on M")
+    t = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = (lambda: sh.scorer_head(*args)) if name == "kernel" else \
+            (lambda: ref.scorer_head(*args))
+        t[name].append(time_ms(fn, iters=50, lead_cycles=LEAD_CYCLES))
+    flops = 2.0 * m * dense * (feat + 2)
+    nbytes = 4.0 * (m * feat + feat * dense + dense + 2 * dense + 2 + 2 * m)
+    bound, by = _bound(flops, nbytes, torch.float32)
+    row = {"max_abs_err": err, "ms": float(np.mean(t["kernel"])),
+           "plain_ms": float(np.mean(t["plain"])), "library_ms": None,
+           "bound_ms": bound, "bound_by": by}
+    print(f"kernel scorer_head M={m} {feat}->{dense}->2: max|err| "
+          f"{err:.3e}  kernel {row['ms']:.4f} ms  plain "
+          f"{row['plain_ms']:.4f} ms  library none  bound {bound:.4f} ms "
+          f"({by})  share of bound {bound / row['ms']:.3f}")
+    return row
 
 
 # -- phase 3: the scoring runtime against the plain forward -------------------
@@ -344,7 +413,9 @@ def operator_phase(device) -> None:
     d_gb = max(float(np.abs(pg - pb).max()), float(np.abs(cg - cb).max()))
     print(f"F2 rows {rows}: small vs bucketed max|diff| {d_sb:.3e}; "
           f"superbatch vs bucketed max|diff| {d_gb:.3e}")
-    check(d_sb <= SCORE_TOL and d_gb <= SCORE_TOL, "dispatch layers disagree")
+    # the convs and the dense and head layers reduce each row in an order
+    # that does not depend on the row count: the layers agree bit for bit
+    check(d_sb == 0 and d_gb == 0, "dispatch layers disagree")
 
 
 # -- phase 4: the main path ----------------------------------------------------
@@ -392,6 +463,7 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
         activities=[torch.profiler.ProfilerActivity.CUDA]) \
         if trace else contextlib.nullcontext()
     cs.conv_scorer.launches = 0
+    sh.scorer_head.launches = 0
     t1 = time.perf_counter()
     try:
         with profiler:
@@ -403,6 +475,7 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
         set_runtime(prev)
     t_end = time.perf_counter()
     launches = cs.conv_scorer.launches
+    head_launches = sh.scorer_head.launches
     busy = device_busy(profiler) if trace else {}
 
     vs = [v for _, v in prog.points]
@@ -418,6 +491,8 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
           "positives did not arrive online (t50 >= 0.55 t99)")
     if device.type == "cuda":
         check(launches > 0, "the main path launched no conv_scorer kernel")
+        check(head_launches > 0, "the main path launched no scorer_head "
+              "kernel")
     video_s = env.n_frames / video.spec.fps
     boot = (first_score[0] if first_score else t_end) - t1
     out = {
@@ -433,6 +508,7 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
         "frames_per_score_s": rt.frames_scored / max(wall["score"], 1e-9),
         "wall_crops_s": wall["crops"],
         "dispatch": rt.dispatch_stats(), "conv_scorer_launches": launches,
+        "scorer_head_launches": head_launches,
         **busy,
     }
     label = "traced query" if trace else "query"
@@ -447,19 +523,21 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
           f"{wall['train']:.2f} s and scoring {wall['score']:.2f} s; "
           f"{rt.frames_scored} frames scored at "
           f"{out['frames_per_score_s']:.1f} frames/s of scoring wall time; "
-          f"dispatch {rt.dispatch_stats()}; conv_scorer launches {launches}")
+          f"dispatch {rt.dispatch_stats()}; conv_scorer launches {launches}, "
+          f"scorer_head launches {head_launches}")
     print(f"{label} (card): rendering + crops {wall['crops']:.2f} s of "
           f"host wall")
     if trace:
         print(f"traced query (card): device busy "
               + (f"{busy['device_busy_s']:.3f} s (conv_scorer "
-                 f"{busy['conv_scorer_device_s']:.3f} s), top "
+                 f"{busy['conv_scorer_device_s']:.3f} s, scorer_head "
+                 f"{busy['scorer_head_device_s']:.4f} s), top "
                  f"{busy['top_kernels']}" if busy else "not measured"))
     return out
 
 
-def device_busy(prof, kernels=(("conv_scorer", "conv3x3_bias_relu"),)
-                ) -> dict:
+def device_busy(prof, kernels=(("conv_scorer", "conv3x3_bias_relu"),
+                              ("scorer_head", "dense_head"))) -> dict:
     """Device time traced during a run: all kernels and copies, each
     named kernel's share (``(label, name substring)`` pairs), and the
     largest items. Empty when the trace holds no device time."""
@@ -529,14 +607,15 @@ def _row(name, what, err, t, bound, by):
 
 
 def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
-                    flash_shapes=FLASH_SHAPES) -> dict:
+                    flash_shapes=FLASH_SHAPES, decode: bool = True) -> dict:
     """Each attention-model kernel against its plain version at the
     shapes serving ``arch`` gives it (h2o-danube-1.8b: d 2560, 32 query
     heads over 8 kv heads of dim 80, window 4096; granite-moe-3b-a800m:
     d 1536, 24 over 8 of dim 64, no window; 8 slots of 4096 ring rows),
     timed beside the plain version and one PyTorch library call (the
-    yardstick, never called by the port). Returns rows keyed (kernel,
-    label); granite's labels name its heads."""
+    yardstick, never called by the port); ``decode`` adds the decode
+    tick's attention. Returns rows keyed (kernel, label); labels of other
+    models than h2o-danube-1.8b name their heads."""
     cfg = get_config(arch)
     d, H, KV, D = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                    cfg.resolved_head_dim)
@@ -597,6 +676,8 @@ def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
         del q, k, v, qt, kt, vt, band
         torch.cuda.empty_cache()
 
+    if not decode:
+        return rows
     B, S = 8, 4096
     pos = np.random.default_rng(0).integers(0, S, size=B)
     pos[-1] = S + 904                      # one slot past the ring's wrap
@@ -1069,6 +1150,7 @@ def main() -> int:
           f"count {torch.cuda.device_count()}")
     build_phase()
     rows = kernel_phase(device)
+    head_row = head_phase(device)
     operator_phase(device)
     query = main_path(device)
     print("main path: " + json.dumps(query))
@@ -1096,6 +1178,13 @@ def main() -> int:
                                    MOE_FLASH_SHAPES))
     moe_parity_phase(device)
     moe_serve = serve_lm(device, MOE_ARCH)
+    # the other accepted configs' head shapes and norm width
+    lm_rows.update(lm_kernel_phase(device, WIDE_HEAD_ARCH, (),
+                                   WIDE_FLASH_SHAPES, decode=False))
+    for arch in GROUP_ARCHS:
+        lm_rows.update(lm_kernel_phase(
+            device, arch, WIDE_RMS_SHAPES if arch == WIDE_RMS_ARCH else (),
+            ()))
     # the kernel's line: one 1024-frame chunk of the full-width operator,
     # its five conv layers (the main path's largest dispatch); the bound
     # is the larger of their summed bytes and summed operations' times
@@ -1119,7 +1208,12 @@ def main() -> int:
                               ("flash_attention", "B=1 S=2048 bfloat16"),
                               ("decode_attention", "bfloat16"))] +
         [lm_line("moe_gmm", lm_rows, moe_serve["launches"]["moe_gmm"],
-                 "C=512 1536->512 bfloat16")]}))
+                 "C=512 1536->512 bfloat16")] + [{
+        "name": "scorer_head", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/scorer_head.cu",
+        "replaces": "src/repro/core/runtime.py:200-201 (XLA matmuls, no "
+                    "Pallas kernel)",
+        "launches": query["scorer_head_launches"], **head_row}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,10 +16,12 @@ layer and the same padded shape in both packages:
     grouped kernel is later work).
 
 All three layers run the same ``_scorer_body``: on the card every conv
-layer launches the hand-written kernel (``kernels/conv_scorer.py``),
-whose per-output reduction order does not depend on the row count, so
-padding rows cannot perturb real rows. PyTorch runs eagerly, so there is
-no compilation cache; ``calls`` counts dispatches as in the JAX package.
+layer launches the hand-written kernel (``kernels/conv_scorer.py``), and
+the dense and head layers launch ``kernels/scorer_head.py``; both reduce
+each output in an order that does not depend on the row count, so
+padding rows cannot perturb real rows and the layers agree bit for bit.
+PyTorch runs eagerly, so there is no compilation cache; ``calls`` counts
+dispatches as in the JAX package.
 Results stay on the device (``ScoreHandle``) until they are consumed:
 PyTorch's launches are asynchronous, and ``.cpu()`` is the
 synchronisation point.
@@ -114,9 +116,9 @@ class OperatorRuntime:
         h = x
         for c in params["convs"]:
             h = self.conv(h, c["w"], c["b"])
-        h = h.reshape(h.shape[0], -1)
-        h = torch.relu(h @ params["dense"]["w"] + params["dense"]["b"])
-        out = h @ params["head"]["w"] + params["head"]["b"]
+        out = kops.scorer_head(h.reshape(h.shape[0], -1),
+                               params["dense"]["w"], params["dense"]["b"],
+                               params["head"]["w"], params["head"]["b"])
         return torch.sigmoid(out[:, 0]), softplus(out[:, 1])
 
     def _super_body(self, params: List[dict], x: torch.Tensor

@@ -19,9 +19,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# 9 * Cin * Cout + Cout floats of weights and bias in shared memory; a
-# block may use at most 227 KB on Hopper
-MAX_SMEM_BYTES = 232_448
+COUTS = (8, 16, 24, 32)       # output channels the kernel compiles
+MAX_SMEM_BYTES = 232_448      # shared memory a block may use on Hopper
 
 SIGNATURES = {"conv_scorer_f32": [ctypes.c_void_p] * 4 +
               [ctypes.c_int] * 10 + [ctypes.c_void_p]}
@@ -44,8 +43,27 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             raise TypeError(f"conv_scorer takes float32; {name} is {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if (9 * cin * cout + cout) * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"{cin}x{cout} weights exceed the kernel's shared "
+
+
+def _pixel_floats(cin: int) -> int:
+    """Floats a pixel takes in the kernel's shared memory: the least
+    count >= Cin that is 4 modulo 8 (``csrc/conv_scorer.cu``)."""
+    s = -(-cin // 4) * 4
+    return s + 4 if s % 8 == 0 else s
+
+
+def _check_kernel(w: torch.Tensor, width: int, stride: int) -> None:
+    """What the CUDA kernel takes beyond the plain version: Cout in
+    ``COUTS``, and one output row's strip (3 input rows), the weights
+    and the bias within a block's shared memory."""
+    cin, cout = w.shape[2], w.shape[3]
+    if cout not in COUTS:
+        raise ValueError(f"the kernel compiles Cout {COUTS}, not {cout}")
+    s = _pixel_floats(cin)
+    row = stride * -(-width // stride) * s
+    if 4 * (9 * cin * cout + cout + s + 3 * row) > MAX_SMEM_BYTES:
+        raise ValueError(f"a {width}-wide row of {cin} channels and "
+                         f"{cin}x{cout} weights exceed the kernel's shared "
                          "memory")
 
 
@@ -61,8 +79,8 @@ def conv_scorer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         return ref.conv_scorer(x, w, b, stride)
     if x.device.type != "cuda":
         raise ValueError(f"conv_scorer runs on cpu or cuda, not {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
-        raise ValueError("conv_scorer takes contiguous tensors")
+    build.check_launchable(x, w, b)
+    _check_kernel(w, x.shape[2], stride)
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
     ho, top, _ = ref.same_pad(h, stride)

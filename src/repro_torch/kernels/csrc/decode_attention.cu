@@ -25,7 +25,11 @@
 //   * pass 1, one block of 4 warps per (slot, kv head, 256-row split of
 //     the valid rows); a block handles the kv head's H/KV query heads
 //     together, so each valid row of K and V is read from device memory
-//     once; splits past the slot's valid rows return at once;
+//     once; splits past the slot's valid rows return at once. Groups of
+//     1 to 7 query heads are compiled as they are; a larger group (8,
+//     or granite-20b's 48 on one kv head) runs in chunks of 8 heads, one
+//     block per chunk, each reading the kv head's rows (from L2 after the
+//     first);
 //   * inside a block a row of D elements is read by D/8 lanes, 16 bytes
 //     each (head dim 80: 10 lanes, 160 bytes), grouped in power-of-two
 //     lane groups so that the dot product reduces by xor shuffles; each
@@ -53,7 +57,11 @@ __device__ __forceinline__ int valid_rows(const int* pos, int b, int S) {
 }
 
 // Partial state of split `sp` for (b, h): m at part[((b*H+h)*NS+sp)*(D+2)],
-// l after it, then the D accumulator values.
+// l after it, then the D accumulator values. A block takes G of the kv
+// head's H/KV query heads: chunk blockIdx.z, heads z*G .. z*G+G-1 of the
+// group, those past the group's end left out (zero queries, not
+// written). Every head runs the same code over the same rows in the same
+// order, so its result does not depend on the chunk it falls in.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
     decode_split(const T* __restrict__ q, const T* __restrict__ k,
@@ -64,6 +72,9 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.x / KV;
   const int kvh = blockIdx.x % KV;
   const int sp = blockIdx.y;
+  const int group = H / KV;                 // query heads of this kv head
+  const int h0 = kvh * group + blockIdx.z * G;
+  const int n_heads = min(G, group - (int)blockIdx.z * G);
   const int n_valid = valid_rows(pos, b, S);
   const int r0 = sp * kSplitRows;
   if (r0 >= n_valid) return;   // pass 2 reads only the splits that ran
@@ -73,15 +84,15 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int sub = lane % P;               // chunk of this lane
   const int groups_per_warp = 32 / P;
-  const int group = (threadIdx.x >> 5) * groups_per_warp + lane / P;
+  const int lg = (threadIdx.x >> 5) * groups_per_warp + lane / P;   // lane group
   const int n_groups = kWarps * groups_per_warp;
   const bool has_chunk = sub < C;
 
   float qv[G][8], acc[G][8], m[G], l[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    if (has_chunk) {
+    const int h = h0 + g;
+    if (has_chunk && g < n_heads) {
       load8(q + ((long long)b * H + h) * D + sub * 8, qv[g]);
     } else {
 #pragma unroll
@@ -96,7 +107,7 @@ __global__ void __launch_bounds__(kThreads)
   // every lane of a warp runs the same number of iterations, so the
   // shuffles below always see the whole warp
   for (int base = r0; base < r1; base += n_groups) {
-    const int r = base + group;
+    const int r = base + lg;
     const bool row_ok = r < r1;
     float kk[8], vv[8];
     if (row_ok && has_chunk) {
@@ -129,7 +140,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // merge the lane groups: smem holds, per group and head, m, l, acc[D]
   const int stride = D + 2;
-  float* mine = smem + (group * G) * stride;
+  float* mine = smem + (lg * G) * stride;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (sub == 0) {
@@ -142,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+  for (int i = threadIdx.x; i < n_heads * D; i += kThreads) {
     const int g = i / D;
     const int d = i % D;
     float mx = -INFINITY;
@@ -155,7 +166,7 @@ __global__ void __launch_bounds__(kThreads)
       lsum = fmaf(w, st[1], lsum);
       a = fmaf(w, st[2 + d], a);
     }
-    float* out = part + (((long long)b * H + kvh * G + g) * NS + sp) * stride;
+    float* out = part + (((long long)b * H + h0 + g) * NS + sp) * stride;
     if (d == 0) {
       out[0] = mx;
       out[1] = lsum;
@@ -192,7 +203,9 @@ int launch_split(const void* q, const void* k, const void* v, const int* pos,
   int P = 1;
   while (P < D / 8) P <<= 1;
   const size_t smem = (size_t)kWarps * (32 / P) * G * (D + 2) * sizeof(float);
-  const dim3 grid((unsigned int)(B * KV), (unsigned int)NS);
+  const int chunks = (H / KV + G - 1) / G;
+  const dim3 grid((unsigned int)(B * KV), (unsigned int)NS,
+                  (unsigned int)chunks);
   decode_split<T, G><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, pos, part, H, KV, S, D, NS, P,
       scale);
@@ -210,8 +223,12 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
     case 2: err = launch_split<T, 2>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
     case 3: err = launch_split<T, 3>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
     case 4: err = launch_split<T, 4>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
-    case 8: err = launch_split<T, 8>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 5: err = launch_split<T, 5>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
+    case 6: err = launch_split<T, 6>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
+    case 7: err = launch_split<T, 7>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
+    // 8 and any larger group: chunks of 8 query heads (granite-20b's 48
+    // heads on one kv head take 6 chunks)
+    default: err = launch_split<T, 8>(q, k, v, pos, part, B, H, KV, S, D, NS, scale, stream); break;
   }
   if (err != 0) return err;
   decode_combine<T><<<(unsigned int)(B * H), kCombineThreads, 0, stream>>>(
@@ -228,7 +245,7 @@ extern "C" int decode_attention_split_rows() { return kSplitRows; }
 // dtype: 0 float32, 1 bfloat16; pos: int32 (B,) or null for all rows
 // valid. Launches both passes on `stream` and returns cudaGetLastError();
 // 0 means launched. The caller (kernels/decode_attention.py) has checked
-// shapes (D % 8 == 0, D <= 256, H / KV in {1, 2, 3, 4, 8}), types,
+// shapes (D % 8 == 0, D <= 256, KV dividing H), types,
 // contiguity and 16-byte alignment.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* pos,

@@ -24,9 +24,9 @@
 //     of the band, by TMA, as bf16 into a ring of 2 (D > 64) or 3 stages
 //     in shared memory, each stage's arrival counted in bytes on an
 //     mbarrier, so the next tiles load while the tensor cores work;
-//   * rows are 128-byte-swizzled 64-element column blocks (D 64, 80, 128;
-//     D 80 is a block of 64 and one of 16 real and 48 zero columns), or
-//     one 64- or 32-byte-swizzled block (D 32, 16);
+//   * rows are 128-byte-swizzled 64-element column blocks (D 64, 80, 128,
+//     256; D 80 is a block of 64 and one of 16 real and 48 zero columns),
+//     or one 64- or 32-byte-swizzled block (D 32, 16);
 //   * S = Q.K^T by wgmma m64n64k16 (both operands K-major in shared
 //     memory, D/16 instructions), float32 in registers; a row's online max
 //     and sum stay in registers across the four lanes that share it in the
@@ -53,8 +53,16 @@
 // query tile, head, batch) stages the q tile and each 64-row K and V tile
 // in shared memory as float32; a thread owns 4 query rows x 8 key columns
 // of the score tile and 4 rows x D/8 columns of the accumulator, and p
-// stays float32. Head dims 16, 32, 64, 80 and 128 are compiled in both
-// types (80 is the served one).
+// stays float32. Head dims 16, 32, 64, 80, 128 and 256 are compiled in
+// both types (80 and 64 are served by h2o-danube-1.8b and
+// granite-moe-3b-a800m; 256 is gemma3-12b's).
+//
+// D 256 (bf16) keeps one consumer warpgroup and the producer warp, 160
+// threads, so ptxas may give a thread up to 255 registers: the P.V
+// accumulator is 64 x 256 float32, 128 registers a thread, beside S's 32
+// and P's 16. Q is 32 KB and each of the 2 stages holds 32 KB of K and
+// 32 KB of V, 161 KB in all. P.V is two m64n128k16 products, one per half
+// of V.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -255,19 +263,26 @@ __device__ __forceinline__ void scores_async(float (&sc)[32],
 
 // O += P.V over one 64-key tile: P from registers, V the MN-major B
 // operand in shared memory; started and committed, not waited for.
+// D 256 is two n128 products over the two halves of V (column blocks 0-1
+// and 2-3): the accumulator layout of the halves is that of one n256
+// product, so o stays one array.
 template <int D>
 __device__ __forceinline__ void pv_async(float (&o)[D / 2],
                                          const uint32_t (&pa)[4][4],
                                          const uint8_t* v_st) {
   using L = TcTile<D>;
+  constexpr int kN = D > 128 ? 128 : D;   // columns of one product
   hp::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBk / 16; ++kk)
-    hp::Wgmma<D>::template rs<1>(
-        o, pa[kk],
-        hp::make_desc(v_st + kk * 16 * L::kRow, L::kBlock, 8 * L::kRow,
-                      L::kRow),
-        1);
+#pragma unroll
+    for (int half = 0; half < D / kN; ++half)
+      hp::Wgmma<kN>::template rs<1>(
+          *reinterpret_cast<float(*)[kN / 2]>(o + half * kN / 2), pa[kk],
+          hp::make_desc(v_st + half * (kN / L::kCols) * L::kBlock +
+                            kk * 16 * L::kRow,
+                        L::kBlock, 8 * L::kRow, L::kRow),
+          1);
   hp::wgmma_commit();
 }
 
@@ -545,7 +560,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int dtype,
 // dtype: 0 float32, 1 bfloat16; window <= 0 means none. Launches on
 // `stream` and returns cudaGetLastError(); 0 means launched. The caller
 // (kernels/flash_attention.py) has checked shapes (D in {16, 32, 64, 80,
-// 128}, H % KV == 0), types, contiguity and 16-byte alignment, and
+// 128, 256}, H % KV == 0), types, contiguity and 16-byte alignment, and
 // resolved q_offset.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int dtype,
@@ -560,6 +575,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 64: return launch<64>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
     case 80: return launch<80>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
     case 128: return launch<128>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 256: return launch<256>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

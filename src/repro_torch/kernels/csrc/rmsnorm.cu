@@ -14,67 +14,221 @@
 // a decode tick over 8 slots moves 92 KB (0.03 us), where the launch
 // itself is the cost.
 //
-// The design is the simple one that is right first:
-//   * one block of 256 threads per row; neighbouring threads read
-//     neighbouring elements, so every load and store is coalesced;
-//   * the float32 sum of squares is reduced by warp shuffles and then
-//     across the eight warps in shared memory, in a fixed order, so a
-//     row's result does not depend on the number of rows;
-//   * the row is read a second time for the output; at D = 2560 it is
-//     5 KB in bf16 and comes from L1/L2, not device memory.
-// Several rows per block and 16-byte vector loads are later work.
+// The design reads each row once and keeps it in registers:
+//   * T threads take a row (a power of two, 32 to 256), the fewest that
+//     hold it in at most 32 values a thread, K 16-byte vectors (4 in
+//     bf16, 8 in float32): D 2560 takes 128 threads in either type, 1536
+//     64 in bf16; 7168 takes 256 with 4 vectors in bf16 and 7 in
+//     float32. A block of 256 threads takes 256 / T rows;
+//   * thread t holds vectors t, t + T, ..., t + (K-1) T of its row, each
+//     loaded by one 16-byte load and held as loaded (bf16 pairs stay
+//     packed, 4 registers a vector), and scale's matching values by
+//     float4 loads issued beside x's, before the sum; the output pass
+//     reuses x from registers;
+//   * the float32 sum of squares: each thread over its values in order,
+//     then xor shuffles within the warp, then, where a row spans several
+//     warps, the warps' sums added in warp order from shared memory;
+//   * a row whose bytes are not a whole number of 16-byte vectors, or a
+//     tensor not 16-byte aligned, takes the same kernel with scalar loads
+//     (VEC = false): the same values in the same threads and the same
+//     order, one element at a time.
+// The order of the sum depends only on D, so a row's result does not
+// depend on the row count: the 8 rows of a decode tick and the 2048 of a
+// prefill give the same bits for the same row.
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
 
 using repro_torch::from_float;
-using repro_torch::to_float;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kBlock = 256;   // threads of a block
+constexpr int kValues = 32;   // values a thread holds at most
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct Vec {
+  static constexpr int kN = 16 / sizeof(T);    // elements in 16 bytes
+  static constexpr int kMaxK = kValues / kN;   // vectors a thread holds
+};
+
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_scale(const float* scale, int i,
+                                           int limit, float (&s)[Vec<T>::kN]) {
+  constexpr int n = Vec<T>::kN;
+  if (VEC && i + n <= limit) {
+#pragma unroll
+    for (int e = 0; e < n; e += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(scale + i + e);
+      s[e] = a.x; s[e + 1] = a.y; s[e + 2] = a.z; s[e + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < n; ++e) s[e] = i + e < limit ? scale[i + e] : 0.0f;
+  }
+}
+
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_vec(T* row, int i, int limit,
+                                          const float (&v)[Vec<T>::kN]) {
+  constexpr int n = Vec<T>::kN;
+  if (VEC && i + n <= limit) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(row + i) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      uint4 u;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      *reinterpret_cast<uint4*>(row + i) = u;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < n; ++e)
+      if (i + e < limit) row[i + e] = from_float<T>(v[e]);
+  }
+}
+
+// The n values of one 16-byte vector as floats.
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[Vec<T>::kN]) {
+  if constexpr (sizeof(T) == 4) {
+    v[0] = __uint_as_float(u.x); v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z); v[3] = __uint_as_float(u.w);
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+  }
+}
+
+// TPR threads a row, K vectors a thread; kBlock / TPR rows a block.
+template <typename T, int K, bool VEC>
+__global__ void __launch_bounds__(kBlock)
     rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ scale,
-                 T* __restrict__ out, int D, float eps) {
-  __shared__ float warp_sums[kWarps];
-  const T* xr = x + (long long)blockIdx.x * D;
-  T* outr = out + (long long)blockIdx.x * D;
+                 T* __restrict__ out, long long rows, int D, int TPR,
+                 float eps) {
+  constexpr int n = Vec<T>::kN;
+  __shared__ float warp_sums[kBlock / 32];
+  const int rpb = kBlock / TPR;                      // rows a block
+  const int local = threadIdx.x / TPR;
+  const int t = threadIdx.x % TPR;
+  const long long row = (long long)blockIdx.x * rpb + local;
+  const bool live = row < rows;
+  const T* xr = x + (live ? row : 0) * D;
+
+  // x held as loaded, 16 bytes a vector (bf16 pairs stay packed), and
+  // scale's matching values beside it, all loaded before the sum
+  uint4 raw[K];
+  float sc[K][n];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = (k * TPR + t) * n;
+    const int limit = live ? D : 0;
+    if (VEC && i + n <= limit) {
+      raw[k] = *reinterpret_cast<const uint4*>(xr + i);
+    } else {
+      T* e = reinterpret_cast<T*>(&raw[k]);
+#pragma unroll
+      for (int j = 0; j < n; ++j)
+        e[j] = i + j < limit ? xr[i + j] : from_float<T>(0.0f);
+    }
+    load_scale<T, VEC>(scale, i, limit, sc[k]);
+  }
   float ss = 0.0f;
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    const float v = to_float(xr[i]);
-    ss = fmaf(v, v, ss);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float v[n];
+    unpack<T>(raw[k], v);
+#pragma unroll
+    for (int e = 0; e < n; ++e) ss = fmaf(v[e], v[e], ss);
   }
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  float total = 0.0f;
-  for (int w = 0; w < kWarps; ++w) total += warp_sums[w];
-  const float r = 1.0f / sqrtf(total / (float)D + eps);
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    outr[i] = from_float<T>(to_float(xr[i]) * r * scale[i]);
+  if (TPR > 32) {
+    const int wpr = TPR / 32;                        // warps a row
+    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = ss;
+    __syncthreads();
+    const float* mine = warp_sums + local * wpr;
+    ss = 0.0f;
+    for (int w = 0; w < wpr; ++w) ss += mine[w];
   }
+  if (!live) return;
+  const float r = 1.0f / sqrtf(ss / (float)D + eps);
+  T* outr = out + row * D;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float v[n];
+    unpack<T>(raw[k], v);
+#pragma unroll
+    for (int e = 0; e < n; ++e) v[e] = v[e] * r * sc[k][e];
+    store_vec<T, VEC>(outr, (k * TPR + t) * n, D, v);
+  }
+}
+
+template <typename T, int K>
+int launch_k(const T* x, const float* scale, T* out, long long rows, int D,
+             int tpr, bool vec, float eps, cudaStream_t s) {
+  const int rpb = kBlock / tpr;
+  const long long blocks = (rows + rpb - 1) / rpb;
+  if (vec)
+    rmsnorm_rows<T, K, true><<<(unsigned int)blocks, kBlock, 0, s>>>(
+        x, scale, out, rows, D, tpr, eps);
+  else
+    rmsnorm_rows<T, K, false><<<(unsigned int)blocks, kBlock, 0, s>>>(
+        x, scale, out, rows, D, tpr, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* x, const void* scale, void* out, long long rows,
+           int D, float eps, cudaStream_t s) {
+  constexpr int n = Vec<T>::kN;
+  const int nvec = (D + n - 1) / n;
+  constexpr int kMaxK = Vec<T>::kMaxK;
+  int tpr = 32;
+  while (tpr < kBlock && nvec > kMaxK * tpr) tpr *= 2;
+  const int k = (nvec + tpr - 1) / tpr;
+  if (k > kMaxK) return (int)cudaErrorInvalidValue;
+  // 16-byte vectors need whole vectors per row and aligned tensors
+  const bool vec = D % n == 0 &&
+      ((uintptr_t)x | (uintptr_t)out | (uintptr_t)scale) % 16 == 0;
+  const T* xt = (const T*)x;
+  const float* sc = (const float*)scale;
+  T* ot = (T*)out;
+  switch (k) {
+    case 1: return launch_k<T, 1>(xt, sc, ot, rows, D, tpr, vec, eps, s);
+    case 2: return launch_k<T, 2>(xt, sc, ot, rows, D, tpr, vec, eps, s);
+    case 3: return launch_k<T, 3>(xt, sc, ot, rows, D, tpr, vec, eps, s);
+    case 4: return launch_k<T, 4>(xt, sc, ot, rows, D, tpr, vec, eps, s);
+  }
+  if constexpr (kMaxK > 4) {   // float32
+    switch (k) {
+      case 5: return launch_k<T, 5>(xt, sc, ot, rows, D, tpr, vec, eps, s);
+      case 6: return launch_k<T, 6>(xt, sc, ot, rows, D, tpr, vec, eps, s);
+      case 7: return launch_k<T, 7>(xt, sc, ot, rows, D, tpr, vec, eps, s);
+      case 8: return launch_k<T, 8>(xt, sc, ot, rows, D, tpr, vec, eps, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. Launches on `stream` and returns
 // cudaGetLastError(); 0 means launched. The caller (kernels/rmsnorm.py)
-// has checked shapes, types and contiguity.
+// has checked shapes, types and contiguity, and that D is at most 8192.
 extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out,
                            int dtype, long long rows, int D, float eps,
                            void* stream) {
   if (rows == 0 || D == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    rmsnorm_rows<float><<<(unsigned int)rows, kThreads, 0, s>>>(
-        (const float*)x, (const float*)scale, (float*)out, D, eps);
-  } else if (dtype == 1) {
-    rmsnorm_rows<__nv_bfloat16><<<(unsigned int)rows, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, (const float*)scale, (__nv_bfloat16*)out, D,
-        eps);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0) return launch<float>(x, scale, out, rows, D, eps, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, scale, out, rows, D, eps, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -21,12 +21,19 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-GROUPS = (1, 2, 3, 4, 8)       # query heads per kv head the kernel compiles
 SIGNATURES = {
     "decode_attention_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
     [ctypes.c_float, ctypes.c_void_p],
     "decode_attention_split_rows": [],
 }
+
+
+def kernel_takes(n_heads: int, n_kv: int, head_dim: int) -> bool:
+    """Does the kernel compile this head shape? Any number of query heads
+    per kv head (a block takes a group of up to 7 as it is, a larger one
+    in chunks of 8), and a head dim that is a multiple of 8 up to 256."""
+    return (n_kv > 0 and n_heads % n_kv == 0 and head_dim % 8 == 0
+            and 0 < head_dim <= 256)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,10 +62,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cpu or cuda, not "
                          f"{q.device}")
-    if D % 8 or D > 256 or H // KV not in GROUPS:
-        raise ValueError(f"head dim {D} (a multiple of 8 up to 256) or "
-                         f"{H // KV} query heads per kv head {GROUPS} is "
-                         "not one the kernel compiles")
+    if not kernel_takes(H, KV, D):
+        raise ValueError(f"head dim {D} is not one the kernel compiles "
+                         "(a multiple of 8 up to 256)")
     if pos is not None and pos.dtype != torch.int32:
         raise TypeError(f"pos is int32 on the card, not {pos.dtype}")
     build.check_launchable(q, k, v, *(() if pos is None else (pos,)))

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (16, 32, 64, 80, 128)     # the head dims the kernel compiles
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the head dims the kernel compiles
 SIGNATURES = {"flash_attention_fwd": [ctypes.c_void_p] * 4 +
               [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]}
 

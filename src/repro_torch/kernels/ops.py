@@ -3,7 +3,8 @@
 ``resolve_device`` is the one place that says where an entry point runs:
 on the card unless the caller asks for the CPU, and never quietly on the
 CPU when there is no card. ``conv_scorer_fn`` gives the scoring runtime
-its conv scorer once, when the runtime is built.
+its conv scorer once, when the runtime is built; ``scorer_head`` is the
+scorer's dense and head layers, the kernel's wrapper.
 
 ``rmsnorm``, ``attention``, ``decode_attention`` and ``moe_gmm`` are
 what the LM zoo's model calls for its norms, its prefill attention, its
@@ -24,6 +25,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import scorer_head as _head
 
 Device = Union[str, torch.device, None]
 
@@ -49,6 +51,7 @@ def conv_scorer_fn(device: Device = None, *, stride: int = 2) -> Callable:
     return functools.partial(_conv.conv_scorer, stride=stride)
 
 
+scorer_head = _head.scorer_head
 rmsnorm = _rms.rmsnorm
 attention = _fa.flash_attention
 decode_attention = _dec.decode_attention

@@ -50,6 +50,14 @@ def conv_scorer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
+def scorer_head(h: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
+                wh: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
+    """The scorer's dense and head layers, ``relu(h @ wd + bd) @ wh + bh``
+    (``repro/core/runtime.py``'s scorer body, l.200-201). h (M, feat) ->
+    (M, 2)."""
+    return torch.relu(h @ wd + bd) @ wh + bh
+
+
 NEG_INF = -1e30
 
 

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
+MAX_D = 8192          # a row's values: 256 threads x 32 values
 SIGNATURES = {"rmsnorm_fwd": [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
     ctypes.c_void_p]}
@@ -24,7 +25,9 @@ SIGNATURES = {"rmsnorm_fwd": [ctypes.c_void_p] * 3 + [
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x (..., D) float32 or bfloat16; scale (D,) float32 -> x's shape
-    and type. ``rmsnorm.launches`` counts the kernel's launches."""
+    and type. On the card a row's result depends only on the row and D,
+    not on the row count. ``rmsnorm.launches`` counts the kernel's
+    launches."""
     code = build.dtype_code(x)
     if scale.dtype != torch.float32:
         raise TypeError(f"rmsnorm's scale is float32, not {scale.dtype}")
@@ -37,9 +40,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         return ref.rmsnorm(x, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm runs on cpu or cuda, not {x.device}")
-    build.check_launchable(x, scale)
-    out = torch.empty_like(x)
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("rmsnorm takes contiguous tensors")
     d = x.shape[-1]
+    if d > MAX_D:
+        raise ValueError(f"the kernel takes rows of at most {MAX_D} "
+                         f"values; got {d}")
+    out = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     build.launch(build.load("rmsnorm", SIGNATURES).rmsnorm_fwd, x.device,
                  x.data_ptr(), scale.data_ptr(), out.data_ptr(), code, rows,

@@ -1,0 +1,69 @@
+"""The scorer's dense and head layers as one CUDA kernel: binding and
+wrapper.
+
+``scorer_head(h, wd, bd, wh, bh)`` computes ``relu(h @ wd + bd) @ wh +
+bh`` in float32. It replaces no Pallas kernel: it stands for the JAX
+package's two XLA matmuls in the scorer body (``repro/core/runtime.py``,
+l.200-201), and exists for the port's invariant that every dispatch
+layer scores a frame to the same bits. Each output is summed in one
+fixed order that depends on neither the row count nor the row's place,
+where a library matmul may change its algorithm with the row count. Its
+source is ``csrc/scorer_head.cu``; the note there gives its design and
+its bound.
+
+A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
+tensor on the card launches the kernel or raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+MAX_DENSE = 64                # dense units a row of the kernel holds
+SIGNATURES = {"scorer_head_f32": [ctypes.c_void_p] * 6 +
+              [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+
+
+def scorer_head(h: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
+                wh: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
+    """h (M, feat), wd (feat, dense), bd (dense,), wh (dense, 2), bh (2,),
+    all float32 -> (M, 2). A row's result depends neither on M nor on
+    the other rows. ``scorer_head.launches`` counts the kernel's
+    launches."""
+    tensors = {"h": h, "wd": wd, "bd": bd, "wh": wh, "bh": bh}
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"scorer_head takes float32; {name} is {t.dtype}")
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    if h.dim() != 2 or wd.dim() != 2 or wd.shape[0] != h.shape[1] or \
+            tuple(bd.shape) != (wd.shape[1],) or \
+            tuple(wh.shape) != (wd.shape[1], 2) or tuple(bh.shape) != (2,):
+        raise ValueError(
+            "scorer_head takes h (M, feat), wd (feat, dense), bd (dense,), "
+            f"wh (dense, 2), bh (2,); got "
+            f"{[tuple(t.shape) for t in tensors.values()]}")
+    if h.device.type == "cpu":
+        return ref.scorer_head(h, wd, bd, wh, bh)
+    if h.device.type != "cuda":
+        raise ValueError(f"scorer_head runs on cpu or cuda, not {h.device}")
+    M, feat = h.shape
+    dense = wd.shape[1]
+    if dense > MAX_DENSE:
+        raise ValueError(f"the kernel takes at most {MAX_DENSE} dense "
+                         f"units; got {dense}")
+    build.check_launchable(*tensors.values())
+    out = torch.empty((M, 2), dtype=torch.float32, device=h.device)
+    build.launch(build.load("scorer_head", SIGNATURES).scorer_head_f32,
+                 h.device, h.data_ptr(), wd.data_ptr(), bd.data_ptr(),
+                 wh.data_ptr(), bh.data_ptr(), out.data_ptr(), M, feat,
+                 dense, what=f"scorer_head at h {tuple(h.shape)}, "
+                             f"wd {tuple(wd.shape)}")
+    scorer_head.launches += 1
+    return out
+
+
+scorer_head.launches = 0

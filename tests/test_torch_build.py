@@ -70,3 +70,21 @@ def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
     after = {n: build.library_path(n) for n in ("moe_gmm", "rmsnorm")}
     assert all(before[n] != after[n] for n in before)
     assert all(after[n].name.startswith(f"lib{n}_") for n in after)
+
+
+# every kernel the port builds: the five TPU kernels' counterparts and
+# the scorer's dense and head layers
+SOURCES = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention",
+           "moe_gmm", "scorer_head")
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_each_kernel_source_has_its_own_build(name):
+    """Each source builds into its own library under ``BUILD_DIR``, named
+    after it and keyed by its text: the six keys differ."""
+    assert build.source(name).exists()
+    path = build.library_path(name)
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
+    assert len({build.library_path(n) for n in SOURCES}) == len(SOURCES)
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(SOURCES)

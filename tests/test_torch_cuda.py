@@ -20,6 +20,7 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.kernels import scorer_head as sh  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
@@ -50,17 +51,21 @@ def _inputs(n, h, cin, cout, seed, device):
 @pytest.mark.parametrize("i", range(len(FAMILY_LAYERS)),
                          ids=[f"H{h}_{ci}to{co}" for h, ci, co in FAMILY_LAYERS])
 def test_kernel_matches_plain_version(cuda, i):
-    """Within 1e-4 of the plain version (cuDNN in full float32), and each
-    output independent of N: a prefix of the batch gives the same bits."""
+    """At N 1024 within 1e-4 of the plain version (cuDNN in full
+    float32), and each output independent of N: the batch's first 1, 2, 5
+    and 33 images and its last 33 give the same bits alone."""
     h, cin, cout = FAMILY_LAYERS[i]
-    x, w, b = _inputs(37, h, cin, cout, seed=i, device=cuda)
+    x, w, b = _inputs(1024, h, cin, cout, seed=i, device=cuda)
     before = cs.conv_scorer.launches
     got = cs.conv_scorer(x, w, b)
     torch.cuda.synchronize()
     assert cs.conv_scorer.launches == before + 1
     assert_allclose(got.cpu().numpy(), ref.conv_scorer(x, w, b).cpu().numpy(),
                     rtol=1e-4, atol=1e-4)
-    assert torch.equal(cs.conv_scorer(x[:5].contiguous(), w, b), got[:5])
+    for n in (1, 2, 5, 33):
+        assert torch.equal(cs.conv_scorer(x[:n].contiguous(), w, b), got[:n])
+    # a copy: the last images' slice need not be 16-byte aligned
+    assert torch.equal(cs.conv_scorer(x[-33:].clone(), w, b), got[-33:])
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -71,6 +76,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         cs.conv_scorer(x, w.cpu(), b)                    # mixed devices
     with pytest.raises(TypeError):
         cs.conv_scorer(x.half(), w, b)
+    with pytest.raises(ValueError, match="Cout"):
+        cs.conv_scorer(x, w[..., :4].contiguous(), b[:4])
 
 
 def test_runtime_scores_through_the_kernel(cuda):
@@ -97,6 +104,37 @@ def test_runtime_scores_through_the_kernel(cuda):
     assert [s[0] for v in small.shape_vocab().values() for s in v] == [32]
     assert_allclose(ps, p, rtol=0, atol=1e-6)
     assert_allclose(cs_, c, rtol=0, atol=1e-6)
+    # and bit for bit: the convs and the dense and head layers reduce each
+    # row in an order that does not depend on the row count
+    assert np.array_equal(ps, p) and np.array_equal(cs_, c)
+
+
+@pytest.mark.parametrize("m", [20, 32, 64, 1024])
+def test_scorer_head_matches_plain_version_row_by_row(cuda, m):
+    """Within 1e-5 of the plain version, and a row's bits depend neither
+    on M nor on the row's place (op_L5c32s100's 512 features, 64 dense
+    units)."""
+    g = torch.Generator().manual_seed(m)
+    h = torch.rand(m, 512, generator=g).to(cuda)
+    wd = (torch.randn(512, 64, generator=g) * (2 / 512) ** 0.5).to(cuda)
+    bd = (0.1 * torch.randn(64, generator=g)).to(cuda)
+    wh = (torch.randn(64, 2, generator=g) / 8).to(cuda)
+    bh = (0.1 * torch.randn(2, generator=g)).to(cuda)
+    before = sh.scorer_head.launches
+    got = sh.scorer_head(h, wd, bd, wh, bh)
+    torch.cuda.synchronize()
+    assert sh.scorer_head.launches == before + 1
+    assert_allclose(got.cpu().numpy(),
+                    ref.scorer_head(h, wd, bd, wh, bh).cpu().numpy(),
+                    rtol=1e-5, atol=1e-5)
+    assert torch.equal(sh.scorer_head(h[:1].contiguous(), wd, bd, wh, bh),
+                       got[:1])
+    assert torch.equal(sh.scorer_head(h.flip(0).contiguous(), wd, bd, wh, bh),
+                       got.flip(0))
+    with pytest.raises(ValueError, match="dense"):
+        sh.scorer_head(h, torch.zeros(512, 65, device=cuda),
+                       torch.zeros(65, device=cuda),
+                       torch.zeros(65, 2, device=cuda), bh)
 
 
 def test_training_runs_on_the_card(cuda):
@@ -122,21 +160,36 @@ def _randn(shape, dtype, device, seed):
 
 
 @pytest.mark.parametrize("name", LM_DTYPES)
-@pytest.mark.parametrize("rows,d", [(1, 2560), (37, 2560), (5, 200)])
-def test_rmsnorm_kernel_matches_plain_version(cuda, name, rows, d):
+@pytest.mark.parametrize("d", [199, 200, 1536, 2560, 6144])
+def test_rmsnorm_kernel_matches_plain_version(cuda, name, d):
+    """At 1, 8, 37 and 2048 rows within tolerance of the plain version,
+    and a row gives the same bits at every row count (D 199 takes the
+    scalar loads, 200 bf16 the 16-byte ones), and in a tensor that is not
+    16-byte aligned (the scalar loads)."""
     dtype, tol = LM_DTYPES[name]
-    x = _randn((rows, d), dtype, cuda, rows) * 3
-    scale = _randn((d,), torch.float32, cuda, 1)
+    x = _randn((2048, d), dtype, cuda, d) * 3
+    scale = _randn((d,), torch.float32, cuda, d + 1)
     before = rms.rmsnorm.launches
-    got = rms.rmsnorm(x, scale)
+    full = rms.rmsnorm(x, scale)
     torch.cuda.synchronize()
     assert rms.rmsnorm.launches == before + 1
-    assert got.dtype == dtype
-    assert_allclose(got.float().cpu().numpy(),
-                    ref.rmsnorm(x, scale).float().cpu().numpy(),
-                    rtol=tol, atol=tol)
+    assert full.dtype == dtype
+    for rows in (1, 8, 37, 2048):
+        got = rms.rmsnorm(x[:rows].contiguous(), scale)
+        assert torch.equal(got, full[:rows])
+        assert_allclose(got.float().cpu().numpy(),
+                        ref.rmsnorm(x[:rows], scale).float().cpu().numpy(),
+                        rtol=tol, atol=tol)
+    odd = torch.empty(37 * d + 1, dtype=dtype, device=cuda)[1:].view(37, d)
+    odd.copy_(x[:37])
+    assert torch.equal(rms.rmsnorm(odd, scale), full[:37])
 
 
+# gemma3-12b's head dim: 1 and 2 query heads per kv head, with and
+# without a window, at lengths around the 64-row tile
+FLASH_256 = [(1, S, S, 2 * G, 2, 256, window, 0) for S in (1, 63, 64, 65, 257,
+                                                         2048)
+             for G in (1, 2) for window in (None, 100)]
 # the edges of the tensor-core path: every head dim at lengths around the
 # 64-row tile, with 1, 3 or 4 query heads per kv head and a window on
 # every other case
@@ -156,7 +209,7 @@ FLASH_EDGES = [(1, S, S, 2 * (1, 3, 4)[i % 3], 2, D,
     (1, 30, 90, 4, 4, 32, 20, 50),        # explicit q_offset
     (2, 65, 300, 6, 2, 64, 129, 0),       # Sq < Sk, a window cutting the band
     (2, 65, 300, 6, 2, 80, 129, 100),
-] + FLASH_EDGES)
+] + FLASH_EDGES + FLASH_256)
 def test_flash_attention_kernel_matches_plain_version(
         cuda, name, B, Sq, Sk, H, KV, D, window, q_offset):
     dtype, tol = LM_DTYPES[name]
@@ -180,13 +233,23 @@ def test_flash_attention_kernel_matches_plain_version(
                     rtol=tol, atol=tol)
 
 
+# llama4-maverick's 40/8 heads (G 5), 6 and 7 a kv head, and granite-20b's
+# 48 on one kv head (chunks of 8), some rows masked by pos
+DECODE_GROUPS = [(8, 4096, 40, 8, 128, [0, 1, 255, 256, 1000, 2047, 4095,
+                                        9000]),
+                 (3, 600, 12, 2, 64, [17, 599, 300]),
+                 (3, 600, 14, 2, 80, [17, 599, 300]),
+                 (8, 4096, 48, 1, 128, [0, 1, 255, 256, 1000, 2047, 4095,
+                                        9000])]
+
+
 @pytest.mark.parametrize("name", LM_DTYPES)
 @pytest.mark.parametrize("B,S,H,KV,D,pos", [
     (8, 4096, 32, 8, 80, [0, 1, 255, 256, 1000, 2047, 4095, 9000]),
     (8, 4096, 24, 8, 64, [0, 1, 255, 256, 1000, 2047, 4095, 9000]),  # G = 3
     (3, 300, 4, 2, 16, [17, 299, 301]),
     (2, 64, 8, 8, 128, None),
-])
+] + DECODE_GROUPS)
 def test_decode_attention_kernel_matches_plain_version(
         cuda, name, B, S, H, KV, D, pos):
     dtype, tol = LM_DTYPES[name]
@@ -202,6 +265,14 @@ def test_decode_attention_kernel_matches_plain_version(
     assert_allclose(got.float().cpu().numpy(),
                     ref.decode_attention(q, k, v, p).float().cpu().numpy(),
                     rtol=tol, atol=tol)
+    # a head's result does not depend on the block, or the chunk of 8, it
+    # falls in: rotate each kv head's query heads by 3 and rotate back
+    G = H // KV
+    perm = torch.tensor([j * G + (g + 3) % G for j in range(KV)
+                         for g in range(G)], device=cuda)
+    back = torch.argsort(perm)
+    again = da.decode_attention(q[:, perm].contiguous(), k, v, p)
+    assert torch.equal(again[:, back], got)
 
 
 @pytest.mark.parametrize("name", {"float32": 1e-4, "bfloat16": 5e-2})
@@ -232,7 +303,7 @@ def test_moe_gmm_kernel_matches_plain_version(cuda, name, E, C, d, f):
 
 
 @pytest.mark.parametrize("name,tag,n_bf16", [
-    ("moe_gmm", "gmm_wgmma", 1), ("flash_attention", "flash_fwd_wgmma", 5)])
+    ("moe_gmm", "gmm_wgmma", 1), ("flash_attention", "flash_fwd_wgmma", 6)])
 def test_bf16_kernels_use_the_tensor_cores(cuda, name, tag, n_bf16):
     """The SASS of every bf16 kernel holds HGMMA (wgmma) instructions;
     the float32 kernels run on the CUDA cores and hold none."""

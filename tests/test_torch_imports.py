@@ -37,6 +37,7 @@ def test_no_jax_or_repro_import_in_the_port_source():
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.decode_attention",
             "repro_torch.kernels.moe_gmm", "repro_torch.models.moe",
+            "repro_torch.kernels.scorer_head",
             "repro_torch.configs.granite_moe_3b_a800m",
             "repro_torch.configs.h2o_danube_1_8b",
             "repro_torch.models.transformer", "repro_torch.models.convert",
