@@ -5,9 +5,9 @@
 
 Builds the port's six CUDA kernels from the sources in this checkout,
 all at once, prints each kernel's registers, spills and shared memory,
-and counts the tensor-core instructions (HGMMA) in the SASS of the two
-whose bfloat16 path runs on them (grouped expert matmul, flash
-attention); then drives its paths. The ZC² query path: the conv kernel
+and counts the tensor-core instructions in the SASS of the three whose
+bfloat16 path runs on them (HGMMA in grouped expert matmul and flash
+attention, HMMA in decode attention); then drives its paths. The ZC² query path: the conv kernel
 against its plain PyTorch version at every conv layer shape of the
 reduced operator family, and the scorer's dense and head kernel against
 its own, the scoring runtime against the plain forward and its three
@@ -118,9 +118,13 @@ HEAD_SHAPE = (N, 512, 64)
 # products
 GMM_CAPS = (8, 32, 275, 512)
 GMM_DIMS = ((1536, 512), (512, 1536))
-# the kernels whose bf16 path runs on the tensor cores (wgmma fed by TMA),
-# with the name their bf16 kernels carry
-TC_KERNELS = {"moe_gmm": "gmm_wgmma", "flash_attention": "flash_fwd_wgmma"}
+# the kernels whose bf16 path runs on the tensor cores, with the name
+# their bf16 kernels carry and the instruction they must hold: wgmma fed
+# by TMA (HGMMA) in grouped expert matmul and flash attention, mma.sync
+# (HMMA) in decode attention
+TC_KERNELS = {"moe_gmm": ("gmm_wgmma", "HGMMA"),
+              "flash_attention": ("flash_fwd_wgmma", "HGMMA"),
+              "decode_attention": ("decode_bf16", "HMMA")}
 
 
 class SmokeFailure(AssertionError):
@@ -221,9 +225,10 @@ def demangle(names):
 def build_phase() -> None:
     """Every kernel's nvcc build, all started together (one process per
     source); then ptxas's registers, spills and static shared memory for
-    each kernel, and the tensor-core instructions (``HGMMA``) in the SASS
-    of each kernel of the two redesigned sources: every bf16 kernel there
-    must hold some, the float32 ones run on the CUDA cores."""
+    each kernel, and the tensor-core instructions (``HGMMA``, ``HMMA``) in
+    the SASS of each kernel of the three sources whose bf16 path runs on
+    the tensor cores: every bf16 kernel there must hold some, the float32
+    ones run on the CUDA cores."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
@@ -238,14 +243,14 @@ def build_phase() -> None:
                   f"registers, {r['spill_stores']} B spill stores, "
                   f"{r['spill_loads']} B spill loads, {r['smem']} B static "
                   f"smem")
-    for name, tag in TC_KERNELS.items():
-        counts = build.sass_counts(name)
+    for name, (tag, opcode) in TC_KERNELS.items():
+        counts = build.sass_counts(name, opcode)
         short = demangle(counts)
         tc = {k: v for k, v in counts.items() if tag in k}
         print(f"sass {name}: " + "; ".join(
-            f"{short[k]} HGMMA {v}" for k, v in counts.items()))
+            f"{short[k]} {opcode} {v}" for k, v in counts.items()))
         check(bool(tc) and all(tc.values()),
-              f"{name}: a bf16 kernel without HGMMA instructions {tc}")
+              f"{name}: a bf16 kernel without {opcode} instructions {tc}")
 
 
 # -- phase 2: the kernel against its plain version ----------------------------
@@ -706,7 +711,9 @@ def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
         nbytes = (2 * int(n_valid.sum()) * KV * D + 2 * q.numel()) * size \
             + 4 * B
         bound, by = _bound(4.0 * D * H * int(n_valid.sum()), nbytes, dt)
-        label = f"B=8 S=4096{heads} pos {pos.tolist()} {str(dt)[6:]}"
+        split = da.split_rows(S, D, H // KV, dt)
+        label = (f"B=8 S=4096{heads} split {split} pos {pos.tolist()} "
+                 f"{str(dt)[6:]}")
         rows[("decode_attention", label)] = _row("decode_attention", label,
                                                  err, t, bound, by)
         del q, k, v, kt, vt

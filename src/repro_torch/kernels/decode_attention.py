@@ -22,18 +22,47 @@ import torch
 from repro_torch.kernels import build, ref
 
 SIGNATURES = {
-    "decode_attention_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
+    "decode_attention_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
     [ctypes.c_float, ctypes.c_void_p],
-    "decode_attention_split_rows": [],
 }
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the head dims the kernel compiles
+TILE_ROWS = 64               # a split is a whole number of bf16 tiles
+
+
+def split_rows(S: int, D: int, group: int, dtype: torch.dtype) -> int:
+    """Cache rows of one block of the kernel's first pass: a multiple of
+    64, chosen from the ring's length, the head dim, the query heads per
+    kv head and the type alone. It never sees the batch or the
+    positions, so a slot's result (its splits, and the order in which
+    they merge) does not depend on which other slots are busy.
+
+    Tuned on the H100 at the served ticks (8 slots over 4096 rows, about
+    half of them valid; ``benchmarks/torch_kernel_variant.py --splits``):
+    in bf16 the groups of 3-5 heads read fastest in 512-row splits,
+    granite-20b's 48 heads on one kv head (only 8 (slot, kv head) pairs,
+    and a 24 KB partial state a split) in 128-row ones; float32, on the
+    CUDA cores, in 128-row splits at D 64 and 80 and at 48 heads, 256
+    at llama4-maverick-400b-a17b's 5 heads of 128."""
+    if group >= 16:
+        rows = 128
+    elif dtype == torch.float32:
+        rows = 128 if D <= 80 else 256
+    else:
+        rows = 512
+    return max(TILE_ROWS, min(rows, -(-S // TILE_ROWS) * TILE_ROWS))
+
+
+def scratch_floats(B: int, H: int, S: int, D: int, split: int) -> int:
+    """Float32 scratch of one call: a partial state (D accumulators, the
+    max and the sum) for every (slot, head, split) the ring can hold."""
+    return B * H * -(-S // split) * (D + 2)
 
 
 def kernel_takes(n_heads: int, n_kv: int, head_dim: int) -> bool:
     """Does the kernel compile this head shape? Any number of query heads
-    per kv head (a block takes a group of up to 7 as it is, a larger one
-    in chunks of 8), and a head dim that is a multiple of 8 up to 256."""
-    return (n_kv > 0 and n_heads % n_kv == 0 and head_dim % 8 == 0
-            and 0 < head_dim <= 256)
+    per kv head (a block takes up to 64 of them, a larger group runs in
+    chunks of 64) and a head dim of ``HEAD_DIMS``."""
+    return n_kv > 0 and n_heads % n_kv == 0 and head_dim in HEAD_DIMS
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,19 +93,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}")
     if not kernel_takes(H, KV, D):
         raise ValueError(f"head dim {D} is not one the kernel compiles "
-                         "(a multiple of 8 up to 256)")
+                         f"{HEAD_DIMS}")
     if pos is not None and pos.dtype != torch.int32:
         raise TypeError(f"pos is int32 on the card, not {pos.dtype}")
     build.check_launchable(q, k, v, *(() if pos is None else (pos,)))
     lib = build.load("decode_attention", SIGNATURES)
-    splits = -(-S // lib.decode_attention_split_rows())
-    part = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
-                       device=q.device)
+    split = split_rows(S, D, H // KV, q.dtype)
+    part = torch.empty(scratch_floats(B, H, S, D, split),
+                       dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     build.launch(lib.decode_attention_fwd, q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(),
                  None if pos is None else pos.data_ptr(), out.data_ptr(),
-                 part.data_ptr(), code, B, H, KV, S, D, 1.0 / D ** 0.5,
+                 part.data_ptr(), code, B, H, KV, S, D, split,
+                 1.0 / D ** 0.5,
                  what=f"decode_attention at q {tuple(q.shape)}, "
                       f"cache {tuple(k.shape)}")
     decode_attention.launches += 1

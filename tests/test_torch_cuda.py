@@ -109,7 +109,7 @@ def test_runtime_scores_through_the_kernel(cuda):
     assert np.array_equal(ps, p) and np.array_equal(cs_, c)
 
 
-@pytest.mark.parametrize("m", [20, 32, 64, 1024])
+@pytest.mark.parametrize("m", [1, 20, 32, 64, 1024])
 def test_scorer_head_matches_plain_version_row_by_row(cuda, m):
     """Within 1e-5 of the plain version, and a row's bits depend neither
     on M nor on the row's place (op_L5c32s100's 512 features, 64 dense
@@ -135,6 +135,34 @@ def test_scorer_head_matches_plain_version_row_by_row(cuda, m):
         sh.scorer_head(h, torch.zeros(512, 65, device=cuda),
                        torch.zeros(65, device=cuda),
                        torch.zeros(65, 2, device=cuda), bh)
+
+
+# (feat, dense) of the operator family's heads: op_L2c8s25 (7*7*8, 16),
+# op_L3c16s50 (7*7*16, 32), op_L4c16s50 (4*4*16, 32), op_L5c32s100
+# (4*4*32, 64), and a ragged feat past two 64-deep chunks
+FAMILY_HEADS = [(392, 16), (784, 32), (256, 32), (512, 64), (131, 64)]
+
+
+@pytest.mark.parametrize("feat,dense", FAMILY_HEADS)
+def test_scorer_head_rows_are_bit_equal_across_m(cuda, feat, dense):
+    """The same 1024 rows scored at M 1024, and their first and last 1,
+    20, 32 and 64 alone, give the same bits: the dispatch layers' row
+    counts (the small layer's 32, the bucketed 64, a chunk's 1024)."""
+    g = torch.Generator().manual_seed(feat + dense)
+    h = torch.rand(1024, feat, generator=g).to(cuda)
+    wd = (torch.randn(feat, dense, generator=g) * (2 / feat) ** 0.5).to(cuda)
+    bd = (0.1 * torch.randn(dense, generator=g)).to(cuda)
+    wh = (torch.randn(dense, 2, generator=g) / dense ** 0.5).to(cuda)
+    bh = (0.1 * torch.randn(2, generator=g)).to(cuda)
+    full = sh.scorer_head(h, wd, bd, wh, bh)
+    assert_allclose(full.cpu().numpy(),
+                    ref.scorer_head(h, wd, bd, wh, bh).cpu().numpy(),
+                    rtol=1e-5, atol=1e-5)
+    for m in (1, 20, 32, 64):
+        assert torch.equal(sh.scorer_head(h[:m].clone(), wd, bd, wh, bh),
+                           full[:m]), m
+        assert torch.equal(sh.scorer_head(h[-m:].clone(), wd, bd, wh, bh),
+                           full[-m:]), m
 
 
 def test_training_runs_on_the_card(cuda):
@@ -234,30 +262,36 @@ def test_flash_attention_kernel_matches_plain_version(
 
 
 # llama4-maverick's 40/8 heads (G 5), 6 and 7 a kv head, and granite-20b's
-# 48 on one kv head (chunks of 8), some rows masked by pos
+# 48 on one kv head (three m16 tiles of one block), some rows masked by pos
 DECODE_GROUPS = [(8, 4096, 40, 8, 128, [0, 1, 255, 256, 1000, 2047, 4095,
                                         9000]),
                  (3, 600, 12, 2, 64, [17, 599, 300]),
                  (3, 600, 14, 2, 80, [17, 599, 300]),
                  (8, 4096, 48, 1, 128, [0, 1, 255, 256, 1000, 2047, 4095,
                                         9000])]
-
-
-@pytest.mark.parametrize("name", LM_DTYPES)
-@pytest.mark.parametrize("B,S,H,KV,D,pos", [
+DECODE_ROWS = [
     (8, 4096, 32, 8, 80, [0, 1, 255, 256, 1000, 2047, 4095, 9000]),
     (8, 4096, 24, 8, 64, [0, 1, 255, 256, 1000, 2047, 4095, 9000]),  # G = 3
     (3, 300, 4, 2, 16, [17, 299, 301]),
     (2, 64, 8, 8, 128, None),
-] + DECODE_GROUPS)
+] + DECODE_GROUPS
+
+
+def _decode_inputs(B, S, H, KV, D, pos, dtype, device):
+    q = _randn((B, H, D), dtype, device, 4)
+    k = _randn((B, S, KV, D), dtype, device, 5)
+    v = _randn((B, S, KV, D), dtype, device, 6)
+    p = None if pos is None else torch.tensor(pos, dtype=torch.int32,
+                                              device=device)
+    return q, k, v, p
+
+
+@pytest.mark.parametrize("name", LM_DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,D,pos", DECODE_ROWS)
 def test_decode_attention_kernel_matches_plain_version(
         cuda, name, B, S, H, KV, D, pos):
     dtype, tol = LM_DTYPES[name]
-    q = _randn((B, H, D), dtype, cuda, 4)
-    k = _randn((B, S, KV, D), dtype, cuda, 5)
-    v = _randn((B, S, KV, D), dtype, cuda, 6)
-    p = None if pos is None else torch.tensor(pos, dtype=torch.int32,
-                                              device=cuda)
+    q, k, v, p = _decode_inputs(B, S, H, KV, D, pos, dtype, cuda)
     before = da.decode_attention.launches
     got = da.decode_attention(q, k, v, p)
     torch.cuda.synchronize()
@@ -265,14 +299,31 @@ def test_decode_attention_kernel_matches_plain_version(
     assert_allclose(got.float().cpu().numpy(),
                     ref.decode_attention(q, k, v, p).float().cpu().numpy(),
                     rtol=tol, atol=tol)
-    # a head's result does not depend on the block, or the chunk of 8, it
-    # falls in: rotate each kv head's query heads by 3 and rotate back
+    # a head's result does not depend on its place in the group: rotate
+    # each kv head's query heads by 3 and rotate back
     G = H // KV
     perm = torch.tensor([j * G + (g + 3) % G for j in range(KV)
                          for g in range(G)], device=cuda)
     back = torch.argsort(perm)
     again = da.decode_attention(q[:, perm].contiguous(), k, v, p)
     assert torch.equal(again[:, back], got)
+
+
+@pytest.mark.parametrize("name", LM_DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,D,pos", DECODE_ROWS)
+def test_decode_attention_slot_does_not_depend_on_the_batch(
+        cuda, name, B, S, H, KV, D, pos):
+    """Each slot of the batch, run alone as a batch of one, gives the same
+    bits: the split size sees neither B nor pos, and a slot's splits
+    merge in the same order whichever slots are beside it."""
+    dtype, _ = LM_DTYPES[name]
+    q, k, v, p = _decode_inputs(B, S, H, KV, D, pos, dtype, cuda)
+    got = da.decode_attention(q, k, v, p)
+    for b in range(B):
+        alone = da.decode_attention(
+            q[b:b + 1].clone(), k[b:b + 1].clone(), v[b:b + 1].clone(),
+            None if p is None else p[b:b + 1].clone())
+        assert torch.equal(alone, got[b:b + 1]), f"slot {b}"
 
 
 @pytest.mark.parametrize("name", {"float32": 1e-4, "bfloat16": 5e-2})
@@ -302,15 +353,21 @@ def test_moe_gmm_kernel_matches_plain_version(cuda, name, E, C, d, f):
     assert torch.equal(head, got[:, :1])
 
 
-@pytest.mark.parametrize("name,tag,n_bf16", [
-    ("moe_gmm", "gmm_wgmma", 1), ("flash_attention", "flash_fwd_wgmma", 6)])
-def test_bf16_kernels_use_the_tensor_cores(cuda, name, tag, n_bf16):
-    """The SASS of every bf16 kernel holds HGMMA (wgmma) instructions;
-    the float32 kernels run on the CUDA cores and hold none."""
-    counts = build.sass_counts(name)
+@pytest.mark.parametrize("name,tag,n_bf16,opcode", [
+    ("moe_gmm", "gmm_wgmma", 1, "HGMMA"),
+    ("flash_attention", "flash_fwd_wgmma", 6, "HGMMA"),
+    # decode: 6 head dims x 1-4 m16 tiles of query heads, mma.sync
+    ("decode_attention", "decode_bf16", 24, "HMMA")])
+def test_bf16_kernels_use_the_tensor_cores(cuda, name, tag, n_bf16, opcode):
+    """The SASS of every bf16 kernel holds tensor-core instructions (HGMMA
+    for wgmma, HMMA for mma.sync); the float32 kernels run on the CUDA
+    cores and hold none of either."""
+    counts = build.sass_counts(name, opcode)
     tc = {k: v for k, v in counts.items() if tag in k}
     assert len(tc) == n_bf16 and all(v > 0 for v in tc.values()), counts
-    assert not any(v for k, v in counts.items() if tag not in k), counts
+    for op in ("HGMMA", "HMMA"):
+        assert not any(v for k, v in build.sass_counts(name, op).items()
+                       if tag not in k), op
 
 
 def test_moe_gmm_rejects_what_it_does_not_take(cuda):

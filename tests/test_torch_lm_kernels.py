@@ -125,8 +125,8 @@ def test_decode_attention_matches_model(name, pos):
     assert got.dtype == tq.dtype and got.shape == tq.shape
     want = jattn.decode_attention(jq[:, None], jk, jv, H,
                                   pos=jnp.asarray(pos, jnp.int32))[:, 0]
-    # the model rounds p to the cache type before P.V; the kernels and
-    # the plain version keep it float32 (same bound in float32)
+    # the model rounds p to the cache type before P.V, as the bf16 kernel
+    # does; the plain version keeps it float32 (same bound in float32)
     assert_allclose(_np(got), _np(want), **_tol(name))
 
 
