@@ -13,7 +13,13 @@ reduced operator family, and the scorer's dense and head kernel against
 its own, the scoring runtime against the plain forward and its three
 dispatch layers against each other (bit for bit), and one Retrieval
 query for "bus" on the 6 h Banff scene, scored through the kernels, then
-once more under the CUDA profiler for the card's busy time. The LM serving path, for h2o-danube-1.8b (dense) and
+once more under the CUDA profiler for the card's busy time. The grouped
+launches of the stacked superbatch (every member bit for bit the
+ungrouped kernel's, timed beside 8 ungrouped launches and cuDNN's grouped
+convolution), and the multi-query path: 8 mixed queries (Retrieval,
+Tagging, both Countings) over three 0.5 h cameras, each standalone and
+then through the FleetScheduler, bit for bit the same answers with fewer
+dispatches, untraced and traced. The LM serving path, for h2o-danube-1.8b (dense) and
 then granite-moe-3b-a800m (MoE): the rmsnorm, flash-attention,
 decode-attention and (for granite) grouped expert matmul kernels against
 their plain versions at the shapes serving the model gives them, the
@@ -50,12 +56,15 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import landmarks as lm  # noqa: E402
 from repro_torch.core import operators as ops  # noqa: E402
+from repro_torch.core.fleet import FleetScheduler, make_executor  # noqa: E402
 from repro_torch.core.hardware import YOLO_V3  # noqa: E402
 from repro_torch.core.query import Query, make_env  # noqa: E402
 from repro_torch.core.ranking import RetrievalExecutor  # noqa: E402
-from repro_torch.core.runtime import OperatorRuntime, set_runtime  # noqa: E402
+from repro_torch.core.runtime import (OperatorRuntime, TraceGuard,  # noqa: E402
+                                      set_runtime)
 from repro_torch.core.stepper import drive  # noqa: E402
-from repro_torch.core.video import Video, corpus  # noqa: E402
+from repro_torch.core.training import FrameBank  # noqa: E402
+from repro_torch.core.video import QUERY_CLASS, Video, corpus  # noqa: E402
 from repro_torch.kernels import build, conv_scorer as cs, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -109,6 +118,31 @@ WIDE_RMS_ARCH = "granite-20b"
 WIDE_RMS_SHAPES = ((2048, torch.bfloat16), (8, torch.bfloat16),
                    (2048, torch.float32))
 GROUP_ARCHS = ("llama4-maverick-400b-a17b", "granite-20b")
+# the stacked superbatch: members of a grouped launch checked against the
+# ungrouped kernel (the fleet's group_max is 8), images a member in the
+# check, the head's row counts (the small layer's 20 real rows, the
+# smallest bucket, a chunk), and the members of the timed grouped chunk
+GROUP_QS = (2, 3, 8)
+GROUP_N = 256
+GROUP_MS = (20, 64, 1024)
+GROUP_TIMED = 8
+# the fleet: tests/test_fleet.py's 8 mixed queries over three cameras,
+# make_env's 150 training steps, the reduced family; 0.5 h of video each
+# (at 1 h the phase took 275-340 s and the script 763-864 s of its 1200)
+FLEET_HOURS = 0.5
+FLEET_CAMERAS = ("JacksonH", "Banff", "Miami")
+FLEET_SPECS = (("JacksonH", "retrieval", {"max_passes": 2}),
+               ("Banff", "retrieval", {"max_passes": 2}),
+               ("JacksonH", "count_max", {"max_passes": 2}),
+               ("Miami", "count_max", {"max_passes": 2}),
+               ("Banff", "tagging", {}),
+               ("Miami", "tagging", {}),
+               ("Banff", "count_avg", {}),
+               ("Miami", "count_median", {}))
+# the profiler's rows of host-to-device copies, by where the host memory
+# lies
+HTOD = {"htod_pageable_s": "Memcpy HtoD (Pageable -> Device)",
+        "htod_pinned_s": "Memcpy HtoD (Pinned -> Device)"}
 # the scorer's dense and head layers at the query's largest dispatch:
 # 1024 frames of op_L5c32s100 (4 x 4 x 32 features, 64 dense units)
 HEAD_SHAPE = (N, 512, 64)
@@ -371,7 +405,193 @@ def head_phase(device) -> dict:
     return row
 
 
+def head_dims(sig):
+    """(feat, dense) of an operator signature's dense layer."""
+    n_layers, channels, dense, size = sig
+    for _ in range(n_layers):
+        size = -(-size // 2)
+    return size * size * channels, dense
+
+
+def _group_conv_inputs(q, n, h, cin, cout, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.rand((q, n, h, h, cin), generator=g, device=device),
+            torch.randn((q, 3, 3, cin, cout), generator=g, device=device)
+            / math.sqrt(9 * cin),
+            torch.randn((q, cout), generator=g, device=device))
+
+
+def _group_head_inputs(q, m, feat, dense, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.rand((q, m, feat), generator=g, device=device),
+            torch.randn((q, feat, dense), generator=g, device=device)
+            * (2.0 / feat) ** 0.5,
+            0.1 * torch.randn((q, dense), generator=g, device=device),
+            torch.randn((q, dense, 2), generator=g, device=device)
+            / dense ** 0.5,
+            0.1 * torch.randn((q, 2), generator=g, device=device))
+
+
+def grouped_library(x, w, b):
+    """One cuDNN grouped convolution (``groups=Q``) over the members
+    stacked on the channel axis, TF32 off, and its output back in the
+    kernel's layout: the grouped launch's yardstick, timed only."""
+    q, n, h, _, cin = x.shape
+    cout = w.shape[-1]
+    _, top, bottom = ref.same_pad(h, 2)
+    xp = F.pad(x.permute(1, 0, 4, 2, 3).reshape(n, q * cin, h, h),
+               (top, bottom) * 2).contiguous(memory_format=torch.channels_last)
+    wl = w.permute(0, 4, 3, 1, 2).reshape(q * cout, cin, 3, 3).contiguous(
+        memory_format=torch.channels_last)
+    bl = b.reshape(q * cout)
+
+    def library():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return F.conv2d(xp, wl, bl, stride=2, groups=q)
+
+    def as_kernel(out):
+        ho = out.shape[-1]
+        return out.reshape(n, q, cout, ho, ho).permute(1, 0, 3, 4, 2).relu()
+
+    return library, as_kernel
+
+
+def grouped_kernel_phase(device) -> dict:
+    """The grouped launches of the stacked superbatch. Bits: at every
+    conv layer shape of the reduced family and Q 2, 3 and 8, every
+    member of one grouped launch equals the ungrouped kernel on its own
+    inputs (max|diff| == 0), and the launch is within 1e-4 of the plain
+    version; the same for the dense-and-head kernel at the family's
+    heads and M 20, 64 and 1024. Times, with the launches queued ahead:
+    Q 8 x 1024 frames of op_L5c32s100's five layers as one grouped launch
+    a layer, beside 8 ungrouped launches a layer and one cuDNN grouped
+    convolution a layer (timed only), and the head at Q 8 x 1024; the
+    bound is 8 times the single chunk's bytes and operations."""
+    shapes = sorted({s for sig in FAMILY for s in layers(sig)},
+                    key=lambda s: (-s[0], s[1], s[2]))
+    worst = err_max = 0.0
+    for h, cin, cout in shapes:
+        for q in GROUP_QS:
+            x, w, b = _group_conv_inputs(q, GROUP_N, h, cin, cout, device,
+                                         seed=h * 1000 + cin * 10 + q)
+            got = cs.conv_scorer(x, w, b)
+            diff = max(float((got[m] - cs.conv_scorer(
+                x[m].clone(), w[m].clone(), b[m].clone())).abs().max())
+                for m in range(q))
+            err = float((got - ref.conv_scorer_grouped(x, w, b)).abs().max())
+            check(diff == 0, f"grouped conv_scorer H{h} {cin}->{cout} Q {q}: "
+                  f"a member differs from the ungrouped kernel by {diff}")
+            check(math.isfinite(err) and err <= KERNEL_TOL,
+                  f"grouped conv_scorer H{h} {cin}->{cout} Q {q}: max |err| "
+                  f"{err} > {KERNEL_TOL}")
+            worst, err_max = max(worst, diff), max(err_max, err)
+            del x, w, b, got
+    print(f"kernel grouped conv_scorer: {len(shapes)} family layers x Q "
+          f"{GROUP_QS}, {GROUP_N} images a member: members vs the ungrouped "
+          f"kernel max|diff| {worst}; vs plain max|err| {err_max:.3e}")
+    head_worst = head_err = 0.0
+    heads = sorted({head_dims(sig) for sig in FAMILY})
+    for feat, dense in heads:
+        for q in GROUP_QS:
+            for m in GROUP_MS:
+                args = _group_head_inputs(q, m, feat, dense, device,
+                                          seed=feat + dense + q + m)
+                got = sh.scorer_head(*args)
+                # each member's own tensors (a slice of bh is not 16-byte
+                # aligned, which the ungrouped kernel needs)
+                diff = max(float((got[j] - sh.scorer_head(
+                    *(a[j].clone() for a in args))).abs().max())
+                    for j in range(q))
+                err = float((got - ref.scorer_head_grouped(*args)).abs().max())
+                check(diff == 0, f"grouped scorer_head {feat}->{dense} Q {q} "
+                      f"M {m}: a member differs by {diff}")
+                check(math.isfinite(err) and err <= SCORE_TOL,
+                      f"grouped scorer_head {feat}->{dense} Q {q} M {m}: max "
+                      f"|err| {err}")
+                head_worst, head_err = max(head_worst, diff), max(head_err,
+                                                                  err)
+    print(f"kernel grouped scorer_head: heads {heads} x Q {GROUP_QS} x M "
+          f"{GROUP_MS}: members vs the ungrouped kernel max|diff| "
+          f"{head_worst}; vs plain max|err| {head_err:.3e}")
+
+    q = GROUP_TIMED
+    t = {"kernel": 0.0, "single": 0.0, "library": 0.0}
+    flops = nbytes = 0.0
+    for h, cin, cout in layers(MAIN_OP):
+        x, w, b = _group_conv_inputs(q, N, h, cin, cout, device, seed=h)
+        library, as_kernel = grouped_library(x, w, b)
+        check(float((as_kernel(library()) - cs.conv_scorer(x, w, b))
+                    .abs().max()) <= KERNEL_TOL,
+              "cuDNN's grouped yardstick disagrees with the kernel")
+        fns = {"kernel": lambda: cs.conv_scorer(x, w, b),
+               "single": lambda: [cs.conv_scorer(x[m], w[m], b[m])
+                                  for m in range(q)],
+               "library": library}
+        runs = {k: [] for k in fns}
+        for name in ("kernel", "single", "library", "library", "single",
+                     "kernel"):
+            runs[name].append(time_ms(fns[name], iters=10,
+                                      lead_cycles=LEAD_CYCLES))
+        for k in t:
+            t[k] += float(np.mean(runs[k]))
+        _, _, f1, b1 = conv_bound(N, h, cin, cout)
+        flops, nbytes = flops + q * f1, nbytes + q * b1
+        del x, w, b, library
+        torch.cuda.empty_cache()
+    bound, by = _bound(flops, nbytes, torch.float32)
+    conv = {"members": q, "ms": t["kernel"], "single_x8_ms": t["single"],
+            "bound_ms": bound, "bound_by": by, "library_ms": t["library"],
+            "max_abs_err": err_max, "max_member_diff": worst}
+    print(f"kernel grouped conv_scorer, Q {q} x {N} frames of op_L5c32s100 "
+          f"(5 layers, one launch a layer): grouped {t['kernel']:.4f} ms, "
+          f"{q} ungrouped launches a layer {t['single']:.4f} ms, cuDNN "
+          f"groups={q} {t['library']:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"share of bound {bound / t['kernel']:.3f}")
+
+    m, feat, dense = HEAD_SHAPE
+    args = _group_head_inputs(q, m, feat, dense, device, seed=7)
+    own = [[a[j].clone() for a in args] for j in range(q)]
+    fns = {"kernel": lambda: sh.scorer_head(*args),
+           "single": lambda: [sh.scorer_head(*own[j]) for j in range(q)],
+           "plain": lambda: ref.scorer_head_grouped(*args)}
+    runs = {k: [] for k in fns}
+    for name in ("plain", "kernel", "single", "single", "kernel", "plain"):
+        runs[name].append(time_ms(fns[name], iters=50,
+                                  lead_cycles=LEAD_CYCLES))
+    th = {k: float(np.mean(v)) for k, v in runs.items()}
+    bound_h, by_h = _bound(q * 2.0 * m * dense * (feat + 2),
+                           q * 4.0 * (m * feat + feat * dense + dense +
+                                      2 * dense + 2 + 2 * m), torch.float32)
+    head = {"members": q, "ms": th["kernel"], "single_x8_ms": th["single"],
+            "plain_ms": th["plain"], "bound_ms": bound_h, "bound_by": by_h,
+            "max_abs_err": head_err, "max_member_diff": head_worst}
+    print(f"kernel grouped scorer_head, Q {q} x M {m} {feat}->{dense}->2: "
+          f"grouped {th['kernel']:.4f} ms, {q} ungrouped launches "
+          f"{th['single']:.4f} ms, plain {th['plain']:.4f} ms, bound "
+          f"{bound_h:.4f} ms ({by_h}), share of bound "
+          f"{bound_h / th['kernel']:.3f}")
+    return {"conv_scorer": conv, "scorer_head": head}
+
+
 # -- phase 3: the scoring runtime against the plain forward -------------------
+
+def grouped_counts() -> dict:
+    return {"conv_scorer": cs.conv_scorer.grouped_launches,
+            "scorer_head": sh.scorer_head.grouped_launches}
+
+
+def scoring_counts() -> dict:
+    """The scoring kernels' launches, all and grouped."""
+    return {"conv_scorer": cs.conv_scorer.launches,
+            "scorer_head": sh.scorer_head.launches,
+            **{f"{k}_grouped": v for k, v in grouped_counts().items()}}
+
+
+def zero_scoring_counts() -> None:
+    for f in (cs.conv_scorer, sh.scorer_head):
+        f.launches = 0
+        f.grouped_launches = 0
+
 
 def operator_phase(device) -> None:
     sig = MAIN_OP
@@ -404,11 +624,17 @@ def operator_phase(device) -> None:
         def crops(self, idxs, region, size):
             return crops[np.asarray(idxs)]
 
+    before = grouped_counts()
     (pg, cg), _ = bucketed.score_demands(
         [(Trained(), Bank(), np.arange(20)),
          (Trained(), Bank(), np.arange(20, 40))], group_max=2)
+    moved = {k: v - before[k] for k, v in grouped_counts().items()}
     check(small.small_calls == 1 and bucketed.super_calls == 1,
           "layer selection")
+    if device.type == "cuda":
+        # the superbatch: one grouped launch a conv layer, one of the head
+        check(moved == {"conv_scorer": sig[0], "scorer_head": 1},
+              f"the superbatch's grouped launches {moved}")
     rows = {"small": [s[0] for v in small.shape_vocab().values() for s in v],
             "bucketed": [s[:-3] for v in bucketed.shape_vocab().values()
                          for s in v]}
@@ -417,7 +643,8 @@ def operator_phase(device) -> None:
     d_sb = max(float(np.abs(ps - pb).max()), float(np.abs(cs_ - cb).max()))
     d_gb = max(float(np.abs(pg - pb).max()), float(np.abs(cg - cb).max()))
     print(f"F2 rows {rows}: small vs bucketed max|diff| {d_sb:.3e}; "
-          f"superbatch vs bucketed max|diff| {d_gb:.3e}")
+          f"superbatch (grouped launches {moved}) vs bucketed max|diff| "
+          f"{d_gb:.3e}")
     # the convs and the dense and head layers reduce each row in an order
     # that does not depend on the row count: the layers agree bit for bit
     check(d_sb == 0 and d_gb == 0, "dispatch layers disagree")
@@ -467,8 +694,7 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
     profiler = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]) \
         if trace else contextlib.nullcontext()
-    cs.conv_scorer.launches = 0
-    sh.scorer_head.launches = 0
+    zero_scoring_counts()
     t1 = time.perf_counter()
     try:
         with profiler:
@@ -498,6 +724,8 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
         check(launches > 0, "the main path launched no conv_scorer kernel")
         check(head_launches > 0, "the main path launched no scorer_head "
               "kernel")
+        check(rt.pinned_copies == rt.calls,
+              "a dispatch's input was not copied from page-locked memory")
     video_s = env.n_frames / video.spec.fps
     boot = (first_score[0] if first_score else t_end) - t1
     out = {
@@ -514,6 +742,7 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
         "wall_crops_s": wall["crops"],
         "dispatch": rt.dispatch_stats(), "conv_scorer_launches": launches,
         "scorer_head_launches": head_launches,
+        "pinned_copies": rt.pinned_copies,
         **busy,
     }
     label = "traced query" if trace else "query"
@@ -538,7 +767,18 @@ def main_path(device, hours: float = HOURS, max_passes: int = 12,
                  f"{busy['conv_scorer_device_s']:.3f} s, scorer_head "
                  f"{busy['scorer_head_device_s']:.4f} s), top "
                  f"{busy['top_kernels']}" if busy else "not measured"))
+        print(f"traced query (card): {copy_split(busy)}; inputs copied "
+              f"from page-locked memory {rt.pinned_copies} of {rt.calls} "
+              f"dispatches")
     return out
+
+
+def copy_split(busy: dict) -> str:
+    if not busy:
+        return "host-to-device copies not measured"
+    return (f"host-to-device copies: pageable {busy['htod_pageable_s']:.4f} s, "
+            f"pinned {busy['htod_pinned_s']:.4f} s; copy rows "
+            f"{busy['copies']}")
 
 
 def device_busy(prof, kernels=(("conv_scorer", "conv3x3_bias_relu"),
@@ -559,7 +799,167 @@ def device_busy(prof, kernels=(("conv_scorer", "conv3x3_bias_relu"),
     out = {"device_busy_s": total}
     for label, sub in kernels:
         out[f"{label}_device_s"] = sum(r[0] for r in rows if sub in r[1])
+    for label, key in HTOD.items():
+        out[label] = sum(r[0] for r in rows if key in r[1])
+    out["copies"] = [(k[:40], round(t, 4), n) for t, k, n in rows
+                     if "Memcpy" in k or "Memset" in k]
     out["top_kernels"] = [(k[:60], round(t, 4), n) for t, k, n in rows[:8]]
+    return out
+
+
+# -- phase 4b: the multi-query main path ------------------------------------
+
+def fleet_executor(videos, stores, banks, cam, kind, train_steps):
+    env = make_env(videos[cam], Query(kind, QUERY_CLASS[cam]), stores[cam],
+                   bank=banks[cam], train_steps=train_steps)
+    ex = make_executor(env, full_family=False)
+    if kind == "tagging":
+        ex.levels = (30, 10, 1)          # tests/test_fleet.py's levels
+    return ex
+
+
+def _progress(p) -> tuple:
+    return (p.points, p.bytes_up, p.done_t, p.op_switches)
+
+
+def fleet_phase(device, hours: float = FLEET_HOURS,
+                train_steps: int = 150) -> dict:
+    """The 8 mixed queries of ``FLEET_SPECS`` over three cameras, ``hours``
+    of video each, through the port's entry points, three times: each
+    query standalone on a fresh runtime; all eight through an uncontended
+    ``FleetScheduler`` (verification routed through the shared
+    ``OracleService``) on a fresh runtime inside a ``TraceGuard``; and
+    that again under the CUDA profiler. Each run starts with fresh frame
+    banks, so each renders its own frames. Checks: every query's
+    Progress in the fleet is its standalone run's bit for bit, fewer
+    dispatches and fewer conv launches than standalone, stacked
+    superbatches through the grouped kernels, no retrace."""
+    t0 = time.perf_counter()
+    videos = {n: Video(corpus(hours=hours)[n]) for n in FLEET_CAMERAS}
+    stores = {n: lm.build_landmarks(v, 30, YOLO_V3)
+              for n, v in videos.items()}
+    t_world = time.perf_counter() - t0
+    cuda = device.type == "cuda"
+
+    def runtime():
+        return OperatorRuntime() if cuda else OperatorRuntime(device=device)
+
+    def banks():
+        return {n: FrameBank(v) for n, v in videos.items()}
+
+    # run 1: each query standalone
+    solo, solo_calls, solo_stats = [], 0, []
+    bank = banks()
+    zero_scoring_counts()
+    t1 = time.perf_counter()
+    for cam, kind, kw in FLEET_SPECS:
+        rt = runtime()
+        prev = set_runtime(rt)
+        try:
+            solo.append(fleet_executor(videos, stores, bank, cam, kind,
+                                       train_steps).run(**kw))
+        finally:
+            set_runtime(prev)
+        solo_calls += rt.calls
+        solo_stats.append(rt.dispatch_stats())
+    if cuda:
+        torch.cuda.synchronize()
+    wall_solo = time.perf_counter() - t1
+    solo_launches = scoring_counts()
+
+    def fleet_run(trace: bool):
+        rt = runtime()
+        prev = set_runtime(rt)
+        bank = banks()
+        sched = FleetScheduler(contended=False)
+        for i, (cam, kind, kw) in enumerate(FLEET_SPECS):
+            sched.add(f"q{i}", cam, fleet_executor(videos, stores, bank, cam,
+                                                   kind, train_steps), **kw)
+        profiler = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) \
+            if trace else contextlib.nullcontext()
+        zero_scoring_counts()
+        t = time.perf_counter()
+        try:
+            with profiler, TraceGuard(rt) as guard:
+                res = sched.run()
+                if cuda:
+                    torch.cuda.synchronize()
+        finally:
+            set_runtime(prev)
+        wall = time.perf_counter() - t
+        launches = scoring_counts()
+        return (res, sched, rt, guard, wall, launches,
+                device_busy(profiler) if trace else {})
+
+    res, sched, rt, guard, wall, launches, _ = fleet_run(trace=False)
+    for i, p in enumerate(solo):
+        check(_progress(res[f"q{i}"]) == _progress(p),
+              f"fleet query q{i} ({FLEET_SPECS[i][:2]}) differs from its "
+              "standalone run")
+    stats = sched.stats
+    check(stats["dispatches"] < solo_calls,
+          f"fleet dispatches {stats['dispatches']} >= standalone "
+          f"{solo_calls}")
+    check(rt.super_calls > 0, "the fleet stacked no superbatch")
+    if cuda:
+        check(0 < launches["conv_scorer"] < solo_launches["conv_scorer"],
+              f"conv_scorer launches: fleet {launches['conv_scorer']}, "
+              f"standalone {solo_launches['conv_scorer']}")
+        check(launches["scorer_head"] > 0 and
+              launches["conv_scorer_grouped"] > 0 and
+              launches["scorer_head_grouped"] > 0,
+              f"the fleet's launches {launches}")
+        check(rt.pinned_copies == rt.calls,
+              "a dispatch's input was not copied from page-locked memory")
+    tres, _, _, _, twall, _, busy = fleet_run(trace=cuda)
+    check(all(_progress(tres[f"q{i}"]) == _progress(p)
+              for i, p in enumerate(solo)),
+          "the traced fleet run differs from the standalone runs")
+    frames = sum(v.spec.num_frames for v in videos.values())
+    solo_dispatch = {k: sum(d[k] for d in solo_stats)
+                     for k in solo_stats[0]}
+    out = {
+        "queries": len(FLEET_SPECS), "cameras": len(FLEET_CAMERAS),
+        "hours_per_camera": hours, "frames": frames,
+        "wall_world_s": t_world, "wall_standalone_s": wall_solo,
+        "wall_fleet_s": wall, "wall_traced_fleet_s": twall,
+        "standalone_dispatch": solo_dispatch,
+        "fleet_dispatch": rt.dispatch_stats(),
+        "standalone_launches": solo_launches, "fleet_launches": launches,
+        "watermark_fires": stats["watermark_fires"],
+        "eager_dispatches": stats["eager_dispatches"],
+        "score_rounds": stats["score_rounds"],
+        "overlap_host_s": stats["overlap_host_s"],
+        "result_block_s": stats["result_block_s"],
+        "traces_per_arch": guard.traces_per_arch,
+        "n_compiled": rt.n_compiled, "pinned_copies": rt.pinned_copies,
+        "done_t": {f"q{i}": p.done_t for i, p in enumerate(solo)},
+        **busy,
+    }
+    if busy:
+        out["busy_share"] = busy["device_busy_s"] / twall
+    print(f"fleet ({len(FLEET_SPECS)} queries, {len(FLEET_CAMERAS)} cameras x "
+          f"{hours} h, {frames} frames): every Progress equals its "
+          f"standalone run's bit for bit; walls standalone {wall_solo:.2f} s, "
+          f"fleet {wall:.2f} s (traced {twall:.2f} s); dispatches "
+          f"standalone {solo_calls}, fleet {stats['dispatches']} "
+          f"({rt.dispatch_stats()}); conv_scorer launches standalone "
+          f"{solo_launches['conv_scorer']}, fleet {launches}; watermark "
+          f"fires {stats['watermark_fires']}, eager dispatches "
+          f"{stats['eager_dispatches']}, score rounds "
+          f"{stats['score_rounds']}; overlap_host_s "
+          f"{stats['overlap_host_s']}, result_block_s "
+          f"{stats['result_block_s']}; traces per arch "
+          f"{guard.traces_per_arch}, none retraced; inputs copied from "
+          f"page-locked memory {rt.pinned_copies} of {rt.calls} dispatches")
+    print("traced fleet (card): device busy " +
+          (f"{busy['device_busy_s']:.3f} s of {twall:.2f} s wall = share "
+           f"{out['busy_share']:.4f} (conv_scorer "
+           f"{busy['conv_scorer_device_s']:.3f} s, scorer_head "
+           f"{busy['scorer_head_device_s']:.4f} s), top "
+           f"{busy['top_kernels']}" if busy else "not measured") +
+          f"; {copy_split(busy)}")
     return out
 
 
@@ -1158,6 +1558,7 @@ def main() -> int:
     build_phase()
     rows = kernel_phase(device)
     head_row = head_phase(device)
+    grouped = grouped_kernel_phase(device)
     operator_phase(device)
     query = main_path(device)
     print("main path: " + json.dumps(query))
@@ -1173,6 +1574,10 @@ def main() -> int:
            f"{traced['wall_query_s']:.2f} s wall)" if busy
            else "not measured") +
           f"; the rerun repeats the simulated results: {same}")
+    # the multi-query main path: 8 queries over 3 cameras, standalone and
+    # through the FleetScheduler (untraced, traced)
+    fleet = fleet_phase(device)
+    print("fleet: " + json.dumps(fleet))
     # the LM zoo's path: its kernels at the served shapes, the whole
     # model against its plain path, then the model served, untraced and
     # once more under the profiler; h2o-danube-1.8b, then
@@ -1210,6 +1615,9 @@ def main() -> int:
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": sum(r["library_ms"] for r in main_rows),
+        "grouped": {k: grouped["conv_scorer"][k] for k in (
+            "members", "ms", "bound_ms", "library_ms")} | {
+            "launches": fleet["fleet_launches"]["conv_scorer_grouped"]},
     }] + [lm_line(name, lm_rows, serve["launches"][name], label)
           for name, label in (("rmsnorm", "2048x2560 bfloat16"),
                               ("flash_attention", "B=1 S=2048 bfloat16"),
@@ -1220,7 +1628,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/scorer_head.cu",
         "replaces": "src/repro/core/runtime.py:200-201 (XLA matmuls, no "
                     "Pallas kernel)",
-        "launches": query["scorer_head_launches"], **head_row}]}))
+        "launches": query["scorer_head_launches"], **head_row,
+        "grouped": {k: grouped["scorer_head"][k] for k in (
+            "members", "ms", "bound_ms")} | {
+            "launches": fleet["fleet_launches"]["scorer_head_grouped"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

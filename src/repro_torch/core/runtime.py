@@ -11,23 +11,32 @@ layer and the same padded shape in both packages:
     power-of-two buckets (min 64, max ``chunk``);
   * **stacked superbatch dispatch** — ``ScoreBatcher`` fuses up to
     ``group_max`` same-(signature, bucket) chunks from *different*
-    queries into one ``(group, bucket, …)`` dispatch, run as one scorer
-    body per group member (the JAX package's "unroll" style; a one-launch
-    grouped kernel is later work).
+    queries into one ``(group, bucket, …)`` dispatch over the members'
+    stacked params (the JAX package's ``jax.vmap`` style): each conv
+    layer is one launch of the grouped conv kernel for the whole group,
+    and the dense and head layers one launch of the grouped
+    scorer-head kernel.
 
-All three layers run the same ``_scorer_body``: on the card every conv
-layer launches the hand-written kernel (``kernels/conv_scorer.py``), and
-the dense and head layers launch ``kernels/scorer_head.py``; both reduce
-each output in an order that does not depend on the row count, so
-padding rows cannot perturb real rows and the layers agree bit for bit.
-PyTorch runs eagerly, so there is no compilation cache; ``calls`` counts
-dispatches as in the JAX package.
-Results stay on the device (``ScoreHandle``) until they are consumed:
-PyTorch's launches are asynchronous, and ``.cpu()`` is the
+All three layers run the same arithmetic: on the card every conv layer
+launches the hand-written kernel (``kernels/conv_scorer.py``), and the
+dense and head layers launch ``kernels/scorer_head.py``; both reduce
+each output in an order that depends neither on the row count nor on
+the group, so padding rows cannot perturb real rows and the layers
+agree bit for bit.
+
+PyTorch runs eagerly, so there is no compilation cache. The counterpart
+of the JAX package's one trace per (signature, shape) is the first
+dispatch of a (layer, signature, shape): ``trace_count``, ``n_compiled``
+and ``TraceGuard`` count those, with the JAX package's meaning, so the
+fleet's tracing assertions hold unchanged. ``calls`` counts dispatches
+as in the JAX package. On the card each dispatch's input is copied from
+page-locked host memory without waiting for the copy (``_dispatch``),
+and results stay on the device (``ScoreHandle``) until they are
+consumed: PyTorch's launches are asynchronous, and ``.cpu()`` is the
 synchronisation point.
 
-Not ported yet: the device mesh and its sharding, ``TraceGuard`` and the
-trace counters.
+Not ported yet: the device mesh and its sharding (``mesh_info`` reports
+one device), and CUDA-graph capture per (signature, shape).
 """
 from __future__ import annotations
 
@@ -76,6 +85,18 @@ def sig_str(sig: ArchSig) -> str:
     return f"L{sig[0]}c{sig[1]}d{sig[2]}s{sig[3]}"
 
 
+def stack_params(params: List[dict]) -> dict:
+    """The members' params stacked leaf by leaf on a new leading axis
+    (the JAX package's ``tree_map(jnp.stack)`` over the group)."""
+    first = params[0]
+    if isinstance(first, dict):
+        return {k: stack_params([p[k] for p in params]) for k in first}
+    if isinstance(first, list):
+        return [stack_params([p[i] for p in params])
+                for i in range(len(first))]
+    return torch.stack(params)
+
+
 class OperatorRuntime:
     """Batched operator scoring on one device.
 
@@ -98,6 +119,14 @@ class OperatorRuntime:
         self.min_bucket = int(min_bucket)
         self.small_flops = float(small_flops)
         self.small_quant = max(int(small_quant), 1)
+        # the counterpart of the JAX package's jit traces: the (layer,
+        # signature, shape) of every first dispatch
+        self._seen: Set[tuple] = set()
+        self._traces: Dict[ArchSig, int] = {}
+        self._group_traces: Dict[ArchSig, int] = {}
+        # (sig, shape-key) -> trace count; the invariant TraceGuard
+        # asserts is that no key ever reaches 2
+        self._shape_traces: Dict[Tuple[ArchSig, tuple], int] = {}
         # sig -> dispatch-shape vocabulary actually used
         self._shape_vocab: Dict[ArchSig, set] = {}
         self.calls = 0
@@ -106,28 +135,48 @@ class OperatorRuntime:
         self.small_calls = 0
         self.bucketed_calls = 0
         self.super_calls = 0
+        self.pinned_copies = 0       # inputs copied from page-locked memory
 
     # -- the scorer ----------------------------------------------------------
 
     def _scorer_body(self, params: dict, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The per-batch ``(params, x) -> (probs, counts)`` computation —
-        shared verbatim by all three dispatch layers."""
+        """The per-batch ``(params, x) -> (probs, counts)`` computation.
+        With a leading member axis on x and on every param (a stacked
+        superbatch), each layer is one grouped launch for all members,
+        member g scored with its own params."""
         h = x
         for c in params["convs"]:
             h = self.conv(h, c["w"], c["b"])
-        out = kops.scorer_head(h.reshape(h.shape[0], -1),
+        out = kops.scorer_head(h.reshape(h.shape[:-3] + (-1,)),
                                params["dense"]["w"], params["dense"]["b"],
                                params["head"]["w"], params["head"]["b"])
-        return torch.sigmoid(out[:, 0]), softplus(out[:, 1])
+        return torch.sigmoid(out[..., 0]), softplus(out[..., 1])
 
-    def _super_body(self, params: List[dict], x: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A ``(group, bucket, …)`` superbatch: one scorer body per group
-        member, with that member's params."""
-        outs = [self._scorer_body(p, x[g]) for g, p in enumerate(params)]
-        return (torch.stack([p for p, _ in outs]),
-                torch.stack([c for _, c in outs]))
+    def _record_trace(self, sig: ArchSig, shape_key: tuple,
+                      *, grouped: bool = False) -> None:
+        """Called at the first dispatch of a (layer, signature, shape),
+        the port's counterpart of a trace, so the counters tally what
+        the JAX package compiles, not dispatches."""
+        if grouped:
+            self._group_traces[sig] = self._group_traces.get(sig, 0) + 1
+        else:
+            self._traces[sig] = self._traces.get(sig, 0) + 1
+        key = (sig, shape_key)
+        self._shape_traces[key] = self._shape_traces.get(key, 0) + 1
+
+    def trace_count(self, arch=None) -> int:
+        if arch is None:
+            return sum(self._traces.values())
+        return self._traces.get(arch_signature(arch), 0)
+
+    @property
+    def n_compiled(self) -> int:
+        """Distinct (layer, signature[, n]) keys dispatched: the JAX
+        package's count of jitted functions (bucketed and superbatch one
+        per signature, small one per signature and quantized size)."""
+        return len({(kind, sig, shape[0]) if kind == "small" else
+                    (kind, sig) for kind, sig, shape in self._seen})
 
     def shape_vocab(self) -> Dict[str, List[tuple]]:
         """sig-string -> sorted dispatch shapes used so far."""
@@ -144,6 +193,11 @@ class OperatorRuntime:
             "frames_scored": self.frames_scored,
             "frames_padded": self.frames_padded,
         }
+
+    def mesh_info(self) -> Dict[str, object]:
+        """Where scoring ran, in the JAX package's keys: one device, no
+        mesh (``ROADMAP.md`` §2 item 6)."""
+        return {"device_count": 1, "mesh_shape": None, "sharded": False}
 
     # -- dispatch layers -----------------------------------------------------
 
@@ -175,9 +229,11 @@ class OperatorRuntime:
 
     def _dispatch(self, sig: ArchSig, params, x: np.ndarray, *, kind: str):
         """Every dispatch funnels through here: counts calls, records the
-        shape vocabulary, moves the input to the device and runs the
-        layer's body. Returns device tensors (the launches are queued,
-        not finished)."""
+        shape vocabulary and the first dispatch of each (layer,
+        signature, shape), moves the input to the device (from
+        page-locked memory on the card) and runs the scorer body.
+        A superbatch's ``params`` are the members' stacked params.
+        Returns device tensors (the launches are queued, not finished)."""
         self.calls += 1
         if kind == "small":
             self.small_calls += 1
@@ -185,12 +241,22 @@ class OperatorRuntime:
             self.super_calls += 1
         else:
             self.bucketed_calls += 1
-        self._shape_vocab.setdefault(sig, set()).add(tuple(x.shape))
-        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-            self.device)
+        shape = tuple(x.shape)
+        self._shape_vocab.setdefault(sig, set()).add(shape)
+        if (kind, sig, shape) not in self._seen:
+            self._seen.add((kind, sig, shape))
+            self._record_trace(sig, shape, grouped=(kind == "super"))
+        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        if self.device.type == "cuda":
+            # From pageable memory the copy would hold the host until it
+            # is done. The page-locked block comes from PyTorch's caching
+            # host allocator, which reuses blocks and does not hand one
+            # out again before the copy queued from it has finished.
+            xt = xt.pin_memory().to(self.device, non_blocking=True)
+            self.pinned_copies += 1
+        else:
+            xt = xt.to(self.device)
         with torch.no_grad():
-            if kind == "super":
-                return self._super_body(params, xt)
             return self._scorer_body(params, xt)
 
     def _dispatch_chunk(self, sig: ArchSig, params, x: np.ndarray):
@@ -416,11 +482,85 @@ class ScoreBatcher:
             p, c = rt._dispatch(sig, params, x, kind="bucketed")
             handle._add_part(off, m, self._out(p, c), None)
             return
+        stacked = stack_params([g[3] for g in group])
         xs = np.stack([g[4] for g in group])
-        ps, cs = rt._dispatch(sig, [g[3] for g in group], xs, kind="super")
+        ps, cs = rt._dispatch(sig, stacked, xs, kind="super")
         out = self._out(ps, cs)
         for row, (handle, off, m, _params, _x) in enumerate(group):
             handle._add_part(off, m, out, row)
+
+
+# -- trace accounting ---------------------------------------------------------
+
+
+class RetraceError(AssertionError):
+    """A (arch signature, batch shape) was traced more than once."""
+
+
+class TraceGuard:
+    """Asserts the one-trace-per-(arch signature, batch shape) invariant
+    over a code region, as in the JAX package.
+
+    The port has no jit: a "trace" is the first dispatch of a (layer,
+    signature, shape) (``OperatorRuntime._record_trace``). Dispatch
+    shapes are bucketed or quantized, so each (signature, shape) should
+    be new at most once; a second trace of one means two dispatch layers
+    reached the same shape, or the shape vocabulary lost its bound. ::
+
+        with TraceGuard(runtime) as guard:
+            ... score ...
+        # raises RetraceError on exit if any (sig, shape) retraced
+        guard.traces_per_arch   # {"L2c8d16s25": 3, ...} for reports
+    """
+
+    def __init__(self, runtime: Optional[OperatorRuntime] = None):
+        self.runtime = runtime
+        self._before: Dict[Tuple[ArchSig, tuple], int] = {}
+
+    def __enter__(self) -> "TraceGuard":
+        if self.runtime is None:
+            self.runtime = get_runtime()
+        self._before = dict(self.runtime._shape_traces)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is None:
+            self.check()
+        return False
+
+    @property
+    def new_traces(self) -> Dict[Tuple[ArchSig, tuple], int]:
+        """(sig, shape-key) -> traces recorded inside the region."""
+        out: Dict[Tuple[ArchSig, tuple], int] = {}
+        for key, n in self.runtime._shape_traces.items():
+            delta = n - self._before.get(key, 0)
+            if delta:
+                out[key] = delta
+        return out
+
+    @property
+    def traces_per_arch(self) -> Dict[str, int]:
+        """sig-string -> traces inside the region, summed over shapes."""
+        out: Dict[str, int] = {}
+        for (sig, _shape), delta in self.new_traces.items():
+            key = sig_str(sig)
+            out[key] = out.get(key, 0) + delta
+        return out
+
+    def check(self) -> None:
+        """Raise RetraceError if any (sig, shape) traced inside the
+        region had already been traced (or traced twice inside it)."""
+        bad = []
+        for key, delta in self.new_traces.items():
+            total = self._before.get(key, 0) + delta
+            if total > 1:
+                sig, shape = key
+                bad.append(f"  {sig_str(sig)} shape={shape}: "
+                           f"{total} traces ({delta} in guarded region)")
+        if bad:
+            raise RetraceError(
+                "retrace detected — each (arch signature, batch shape) "
+                "must trace exactly once per runtime:\n" + "\n".join(bad))
 
 
 # -- process-global runtime ---------------------------------------------------

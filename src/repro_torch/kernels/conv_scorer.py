@@ -3,7 +3,11 @@
 ``conv_scorer(x, w, b)`` replaces ``repro/kernels/conv_scorer.py::
 conv_scorer``, the Pallas TPU kernel: a fused 3x3 SAME conv + bias +
 ReLU over NHWC float32. Its source is ``csrc/conv_scorer.cu``; the note
-there gives its design and its bound on the card.
+there gives its design and its bound on the card. With a leading member
+axis on x, w and b it is the grouped form, the counterpart of
+``jax.vmap`` of the Pallas kernel that the JAX package's stacked
+superbatch runs: one launch for every member, each member's output bit
+for bit the ungrouped launch's on its own inputs.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
@@ -22,18 +26,27 @@ from repro_torch.kernels import build, ref
 COUTS = (8, 16, 24, 32)       # output channels the kernel compiles
 MAX_SMEM_BYTES = 232_448      # shared memory a block may use on Hopper
 
+# the ungrouped C interface, which every design of the kernel has
 SIGNATURES = {"conv_scorer_f32": [ctypes.c_void_p] * 4 +
               [ctypes.c_int] * 10 + [ctypes.c_void_p]}
+GROUPED_SIGNATURES = {"conv_scorer_grouped_f32": [ctypes.c_void_p] * 4 +
+                      [ctypes.c_int] * 11 + [ctypes.c_void_p]}
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            stride: int) -> None:
-    if x.dim() != 4 or w.dim() != 4 or b.dim() != 1:
+    grouped = x.dim() == 5
+    lead = 1 if grouped else 0
+    if x.dim() != 4 + lead or w.dim() != 4 + lead or b.dim() != 1 + lead:
         raise ValueError("conv_scorer takes x (N,H,W,Cin), w (3,3,Cin,Cout), "
-                         f"b (Cout,); got {tuple(x.shape)}, {tuple(w.shape)}, "
+                         "b (Cout,), or each with a leading member axis; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(b.shape)}")
+    if grouped and not x.shape[0] == w.shape[0] == b.shape[0]:
+        raise ValueError(f"member counts differ: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, b {tuple(b.shape)}")
     cin, cout = x.shape[-1], w.shape[-1]
-    if tuple(w.shape[:3]) != (3, 3, cin) or b.shape[0] != cout:
+    if tuple(w.shape[lead:lead + 3]) != (3, 3, cin) or b.shape[-1] != cout:
         raise ValueError(f"weights {tuple(w.shape)} / bias {tuple(b.shape)} "
                          f"do not fit {cin} input channels")
     if stride < 1:
@@ -56,7 +69,7 @@ def _check_kernel(w: torch.Tensor, width: int, stride: int) -> None:
     """What the CUDA kernel takes beyond the plain version: Cout in
     ``COUTS``, and one output row's strip (3 input rows), the weights
     and the bias within a block's shared memory."""
-    cin, cout = w.shape[2], w.shape[3]
+    cin, cout = w.shape[-2], w.shape[-1]
     if cout not in COUTS:
         raise ValueError(f"the kernel compiles Cout {COUTS}, not {cout}")
     s = _pixel_floats(cin)
@@ -70,31 +83,42 @@ def _check_kernel(w: torch.Tensor, width: int, stride: int) -> None:
 def conv_scorer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                 stride: int = 2) -> torch.Tensor:
     """Fused 3x3 SAME conv + bias + ReLU. x: (N, H, W, Cin) float32
-    NHWC, w: (3, 3, Cin, Cout) HWIO -> (N, Ho, Wo, Cout).
+    NHWC, w: (3, 3, Cin, Cout) HWIO -> (N, Ho, Wo, Cout); or, grouped,
+    x (Q, N, H, W, Cin), w (Q, 3, 3, Cin, Cout), b (Q, Cout) -> (Q, N,
+    Ho, Wo, Cout), member q convolved with its own weights.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``conv_scorer.launches`` counts each launch) or raise."""
+    (``conv_scorer.launches`` counts each launch, a grouped one once, and
+    ``conv_scorer.grouped_launches`` the grouped ones) or raise."""
     _check(x, w, b, stride)
+    grouped = x.dim() == 5
     if x.device.type == "cpu":
-        return ref.conv_scorer(x, w, b, stride)
+        return (ref.conv_scorer_grouped if grouped else ref.conv_scorer)(
+            x, w, b, stride)
     if x.device.type != "cuda":
         raise ValueError(f"conv_scorer runs on cpu or cuda, not {x.device}")
     build.check_launchable(x, w, b)
-    _check_kernel(w, x.shape[2], stride)
-    n, h, wd, cin = x.shape
+    _check_kernel(w, x.shape[-2], stride)
+    q = x.shape[0] if grouped else 1
+    n, h, wd, cin = x.shape[-4:]
     cout = w.shape[-1]
     ho, top, _ = ref.same_pad(h, stride)
     wo, left, _ = ref.same_pad(wd, stride)
-    out = torch.empty((n, ho, wo, cout), device=x.device, dtype=torch.float32)
+    out = torch.empty(x.shape[:-3] + (ho, wo, cout), device=x.device,
+                      dtype=torch.float32)
     if out.numel() == 0:
         return out
-    build.launch(build.load("conv_scorer", SIGNATURES).conv_scorer_f32,
+    build.launch(build.load("conv_scorer", SIGNATURES | GROUPED_SIGNATURES)
+                 .conv_scorer_grouped_f32,
                  x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), n, h, wd, cin, cout, ho, wo, stride, top,
+                 out.data_ptr(), q, n, h, wd, cin, cout, ho, wo, stride, top,
                  left, what=f"conv_scorer at x {tuple(x.shape)}, "
                             f"w {tuple(w.shape)}")
     conv_scorer.launches += 1
+    if grouped:
+        conv_scorer.grouped_launches += 1
     return out
 
 
 conv_scorer.launches = 0
+conv_scorer.grouped_launches = 0

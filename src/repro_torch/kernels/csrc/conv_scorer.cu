@@ -67,6 +67,17 @@
 // (kh, kw, ci) alone, so its value depends neither on N nor on its place
 // in a strip or a thread: zero rows that pad a batch to its bucket cannot
 // change real rows, and the dispatch layers agree bit for bit.
+//
+// The grouped form (conv_scorer_grouped_f32) is the counterpart of
+// jax.vmap of the Pallas kernel over a leading member axis, which the
+// JAX package's stacked superbatch runs (repro/core/runtime.py:258):
+// x (Q, N, H, W, Cin), w (Q, 3, 3, Cin, Cout), b (Q, Cout) -> out (Q, N,
+// Ho, Wo, Cout), one launch for all Q members. The member is grid y;
+// each block offsets x, w, b and out by its member and then does exactly
+// what a block of the ungrouped launch does. The launch plan (pixels a
+// thread, rows a strip, threads, shared memory) depends on the image
+// shape alone, neither on N nor on Q, so member q's output is bit for
+// bit the ungrouped kernel's on (x[q], w[q], b[q]).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -128,6 +139,8 @@ struct Shape {
   int S;        // floats a pixel takes in shared memory
   int cols;     // stored columns of one residue class: ceil(W / stride)
   int RW;       // stored pixels a row takes: stride * cols >= W
+  long long x_member;     // floats of x a member takes: N * H * W * Cin
+  long long out_member;   // floats of out a member takes: N * Ho * Wo * Cout
 };
 
 // G channel groups of 8: Cout = 8 G; PX pixels a thread. VEC4: Cin is a
@@ -146,6 +159,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* z_s = b_s + Cout;                // S zeros: the SAME padding
   float* x_s = z_s + S;                   // rows_in x RW pixels of S floats
 
+  // the block's member (grid y): its slices of x, w, b and out
+  const int m = blockIdx.y;
+  x += m * sh.x_member;
+  w += m * 9 * Cin * Cout;
+  b += m * Cout;
+  out += m * sh.out_member;
   const int n = blockIdx.x / sh.strips;
   const int ho0 = (blockIdx.x % sh.strips) * sh.R;
   const int rows_out = min(sh.R, sh.Ho - ho0);
@@ -279,7 +298,7 @@ int threads_for(const Shape& sh, int Cout, int R, int px) {
 
 template <int G, int PX, bool VEC4>
 int launch_vec(const float* x, const float* w, const float* b, float* out,
-               int N, const Shape& sh, int threads, size_t smem,
+               int Q, int N, const Shape& sh, int threads, size_t smem,
                cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       conv3x3_bias_relu<G, PX, VEC4>,
@@ -287,27 +306,29 @@ int launch_vec(const float* x, const float* w, const float* b, float* out,
   if (attr != cudaSuccess) return (int)attr;
   const long long blocks = (long long)N * sh.strips;
   conv3x3_bias_relu<G, PX, VEC4>
-      <<<(unsigned int)blocks, threads, smem, stream>>>(x, w, b, out, sh);
+      <<<dim3((unsigned int)blocks, (unsigned int)Q), threads, smem, stream>>>(
+          x, w, b, out, sh);
   return (int)cudaGetLastError();
 }
 
 template <int G, int PX>
 int launch_px(const float* x, const float* w, const float* b, float* out,
-              int N, const Shape& sh, int threads, size_t smem,
+              int Q, int N, const Shape& sh, int threads, size_t smem,
               cudaStream_t stream) {
   return sh.Cin % 4 == 0
-             ? launch_vec<G, PX, true>(x, w, b, out, N, sh, threads, smem,
+             ? launch_vec<G, PX, true>(x, w, b, out, Q, N, sh, threads, smem,
                                        stream)
-             : launch_vec<G, PX, false>(x, w, b, out, N, sh, threads, smem,
-                                        stream);
+             : launch_vec<G, PX, false>(x, w, b, out, Q, N, sh, threads,
+                                        smem, stream);
 }
 
 template <int G>
-int launch(const float* x, const float* w, const float* b, float* out, int N,
-           Shape sh, cudaStream_t stream) {
+int launch(const float* x, const float* w, const float* b, float* out, int Q,
+           int N, Shape sh, cudaStream_t stream) {
   constexpr int Cout = kCo * G;
   const int px = sh.Ho * sh.Wo >= kWide ? 4 : 2;
-  // the most rows a block may take, then as even strips as there can be
+  // the most rows a block may take, then as even strips as there can be;
+  // none of it looks at N or Q, so a member's bits do not depend on them
   int r_max = 1;
   while (r_max < sh.Ho &&
          threads_for(sh, Cout, r_max + 1, px) <= kMaxThreads &&
@@ -320,8 +341,8 @@ int launch(const float* x, const float* w, const float* b, float* out, int N,
   if (smem > (size_t)kSmemMax || threads > kMaxThreads)
     return (int)cudaErrorInvalidValue;
   return px == 4
-             ? launch_px<G, 4>(x, w, b, out, N, sh, threads, smem, stream)
-             : launch_px<G, 2>(x, w, b, out, N, sh, threads, smem, stream);
+             ? launch_px<G, 4>(x, w, b, out, Q, N, sh, threads, smem, stream)
+             : launch_px<G, 2>(x, w, b, out, Q, N, sh, threads, smem, stream);
 }
 
 }  // namespace
@@ -329,24 +350,37 @@ int launch(const float* x, const float* w, const float* b, float* out, int N,
 // Launches on `stream` and returns cudaGetLastError(); 0 means launched.
 // The caller (kernels/conv_scorer.py) has checked shapes (Cout 8, 16, 24
 // or 32), types, contiguity and 16-byte alignment, and computed the
-// output size and the SAME padding offsets.
-extern "C" int conv_scorer_f32(const void* x, const void* w, const void* b,
-                               void* out, int N, int H, int W, int Cin,
-                               int Cout, int Ho, int Wo, int stride, int top,
-                               int left, void* stream) {
-  if ((long long)N * Ho * Wo * Cout == 0) return 0;
+// output size and the SAME padding offsets. Q members of N images each,
+// every array with the member as its leading axis.
+extern "C" int conv_scorer_grouped_f32(const void* x, const void* w,
+                                       const void* b, void* out, int Q, int N,
+                                       int H, int W, int Cin, int Cout, int Ho,
+                                       int Wo, int stride, int top, int left,
+                                       void* stream) {
+  if ((long long)Q * N * Ho * Wo * Cout == 0) return 0;
+  if (Q > 65535) return (int)cudaErrorInvalidValue;   // grid y
   const int cols = (W + stride - 1) / stride;
   Shape sh{H,    W,    Cin,  Ho,   Wo, stride, top, left,
-           1,    1,    pixel_stride(Cin),      cols, stride * cols};
+           1,    1,    pixel_stride(Cin),      cols, stride * cols,
+           (long long)N * H * W * Cin, (long long)N * Ho * Wo * Cout};
   const cudaStream_t s = (cudaStream_t)stream;
   const float *xf = (const float*)x, *wf = (const float*)w,
               *bf = (const float*)b;
   float* of = (float*)out;
   switch (Cout) {
-    case 8: return launch<1>(xf, wf, bf, of, N, sh, s);
-    case 16: return launch<2>(xf, wf, bf, of, N, sh, s);
-    case 24: return launch<3>(xf, wf, bf, of, N, sh, s);
-    case 32: return launch<4>(xf, wf, bf, of, N, sh, s);
+    case 8: return launch<1>(xf, wf, bf, of, Q, N, sh, s);
+    case 16: return launch<2>(xf, wf, bf, of, Q, N, sh, s);
+    case 24: return launch<3>(xf, wf, bf, of, Q, N, sh, s);
+    case 32: return launch<4>(xf, wf, bf, of, Q, N, sh, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The ungrouped launch: one member.
+extern "C" int conv_scorer_f32(const void* x, const void* w, const void* b,
+                               void* out, int N, int H, int W, int Cin,
+                               int Cout, int Ho, int Wo, int stride, int top,
+                               int left, void* stream) {
+  return conv_scorer_grouped_f32(x, w, b, out, 1, N, H, W, Cin, Cout, Ho, Wo,
+                                 stride, top, left, stream);
 }

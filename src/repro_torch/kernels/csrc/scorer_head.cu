@@ -45,6 +45,16 @@
 //     shared memory; the cluster's first block reads the others' units
 //     through distributed shared memory and sums the two head outputs of
 //     its rows.
+//
+// The grouped form (scorer_head_grouped_f32) stands for the same two
+// matmuls under jax.vmap in the JAX package's stacked superbatch: h (Q,
+// M, feat) with each member's own Wd, bd, Wh, bh stacked on a leading
+// axis, one launch for all Q members. The member is grid z, outside the
+// cluster (whose blocks are the dense tiles along x); each block offsets
+// its pointers by its member and then does what a block of the
+// ungrouped launch does. R (rows a thread) is picked from one member's
+// block count, so it does not change with Q, and member q's output is
+// bit for bit the ungrouped kernel's on its own inputs.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +123,15 @@ __global__ void __launch_bounds__(threads<R>())
   extern __shared__ __align__(16) float smem[];
   __shared__ float hid[kRows][kUnits];
   __shared__ float bd_s[kMaxDense], wh_s[2 * kMaxDense];
+
+  // the block's member (grid z): its slices of every array
+  const long long m = blockIdx.z;
+  h += m * M * feat;
+  wd += m * feat * dense;
+  bd += m * dense;
+  wh += m * 2 * dense;
+  bh += m * 2;
+  out += m * 2 * M;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int tile = blockIdx.x;               // = the block's cluster rank
@@ -251,7 +270,7 @@ __global__ void __launch_bounds__(threads<R>())
 
 template <int R, bool VEC>
 int launch(const float* h, const float* wd, const float* bd, const float* wh,
-           const float* bh, float* out, int M, int feat, int dense,
+           const float* bh, float* out, int Q, int M, int feat, int dense,
            cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * kStages * stage_floats();
   static_assert(sizeof(float) * kRows * kMaxDense <= smem,
@@ -263,7 +282,7 @@ int launch(const float* h, const float* wd, const float* bd, const float* wh,
   const int tiles = (dense + kUnits - 1) / kUnits;
   cudaLaunchConfig_t cfg = {};
   const int row_tiles = (M + kRows - 1) / kRows;
-  cfg.gridDim = dim3((unsigned)tiles, (unsigned)row_tiles);
+  cfg.gridDim = dim3((unsigned)tiles, (unsigned)row_tiles, (unsigned)Q);
   cfg.blockDim = dim3(threads<R>());
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -284,16 +303,19 @@ int launch(const float* h, const float* wd, const float* bd, const float* wh,
 
 // Launches on `stream` and returns cudaGetLastError(); 0 means launched.
 // The caller (kernels/scorer_head.py) has checked shapes (dense <= 64),
-// types and contiguity.
-extern "C" int scorer_head_f32(const void* h, const void* wd, const void* bd,
-                               const void* wh, const void* bh, void* out,
-                               int M, int feat, int dense, void* stream) {
-  if (M == 0) return 0;
-  if (dense < 1 || dense > kMaxDense || feat < 1)
+// types and contiguity. Q members, every array with the member as its
+// leading axis.
+extern "C" int scorer_head_grouped_f32(const void* h, const void* wd,
+                                       const void* bd, const void* wh,
+                                       const void* bh, void* out, int Q, int M,
+                                       int feat, int dense, void* stream) {
+  if (M == 0 || Q == 0) return 0;
+  if (dense < 1 || dense > kMaxDense || feat < 1 || Q > 65535)
     return (int)cudaErrorInvalidValue;
   // 2 rows a thread once the grid has a block for every SM (the card is
   // then bound by shared-memory traffic, which the second row halves for
-  // Wd); 1 while it has fewer blocks (then more warps hide more latency)
+  // Wd); 1 while it has fewer blocks (then more warps hide more latency).
+  // The blocks of one member decide, so a member's bits do not see Q.
   const int blocks = (dense + kUnits - 1) / kUnits * ((M + kRows - 1) / kRows);
   const auto fn = blocks >= 128
                       ? (feat % 4 == 0 && dense % 4 == 0 ? launch<2, true>
@@ -301,6 +323,14 @@ extern "C" int scorer_head_f32(const void* h, const void* wd, const void* bd,
                       : (feat % 4 == 0 && dense % 4 == 0 ? launch<1, true>
                                                          : launch<1, false>);
   return fn((const float*)h, (const float*)wd, (const float*)bd,
-            (const float*)wh, (const float*)bh, (float*)out, M, feat, dense,
-            (cudaStream_t)stream);
+            (const float*)wh, (const float*)bh, (float*)out, Q, M, feat,
+            dense, (cudaStream_t)stream);
+}
+
+// The ungrouped launch: one member.
+extern "C" int scorer_head_f32(const void* h, const void* wd, const void* bd,
+                               const void* wh, const void* bh, void* out,
+                               int M, int feat, int dense, void* stream) {
+  return scorer_head_grouped_f32(h, wd, bd, wh, bh, out, 1, M, feat, dense,
+                                 stream);
 }

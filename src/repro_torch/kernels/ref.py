@@ -50,12 +50,29 @@ def conv_scorer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
+def conv_scorer_grouped(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        stride: int = 2) -> torch.Tensor:
+    """``conv_scorer`` of each member with its own weights: x (Q, N, H,
+    W, Cin), w (Q, 3, 3, Cin, Cout), b (Q, Cout) -> (Q, N, Ho, Wo, Cout)
+    (``jax.vmap`` of the reference over the leading axis)."""
+    return torch.stack([conv_scorer(x[q], w[q], b[q], stride)
+                        for q in range(x.shape[0])])
+
+
 def scorer_head(h: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
                 wh: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
     """The scorer's dense and head layers, ``relu(h @ wd + bd) @ wh + bh``
     (``repro/core/runtime.py``'s scorer body, l.200-201). h (M, feat) ->
     (M, 2)."""
     return torch.relu(h @ wd + bd) @ wh + bh
+
+
+def scorer_head_grouped(h: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
+                        wh: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
+    """``scorer_head`` of each member with its own weights: every
+    argument with a leading member axis Q -> (Q, M, 2)."""
+    return torch.stack([scorer_head(h[q], wd[q], bd[q], wh[q], bh[q])
+                        for q in range(h.shape[0])])
 
 
 NEG_INF = -1e30

@@ -9,7 +9,10 @@ layer scores a frame to the same bits. Each output is summed in one
 fixed order that depends on neither the row count nor the row's place,
 where a library matmul may change its algorithm with the row count. Its
 source is ``csrc/scorer_head.cu``; the note there gives its design and
-its bound.
+its bound. With a leading member axis on every argument it is the
+grouped form that the stacked superbatch runs: one launch for every
+member (the JAX package's two matmuls under ``jax.vmap``), each
+member's output bit for bit the ungrouped launch's on its own inputs.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
@@ -23,47 +26,62 @@ import torch
 from repro_torch.kernels import build, ref
 
 MAX_DENSE = 64                # dense units a row of the kernel holds
+# the ungrouped C interface, which every design of the kernel has
 SIGNATURES = {"scorer_head_f32": [ctypes.c_void_p] * 6 +
               [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+GROUPED_SIGNATURES = {"scorer_head_grouped_f32": [ctypes.c_void_p] * 6 +
+                      [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 
 
 def scorer_head(h: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
                 wh: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
     """h (M, feat), wd (feat, dense), bd (dense,), wh (dense, 2), bh (2,),
-    all float32 -> (M, 2). A row's result depends neither on M nor on
-    the other rows. ``scorer_head.launches`` counts the kernel's
-    launches."""
+    all float32 -> (M, 2); or, grouped, each with a leading member axis
+    Q -> (Q, M, 2), member q with its own weights. A row's result
+    depends neither on M, nor on Q, nor on the other rows.
+    ``scorer_head.launches`` counts the kernel's launches (a grouped one
+    once), ``scorer_head.grouped_launches`` the grouped ones."""
     tensors = {"h": h, "wd": wd, "bd": bd, "wh": wh, "bh": bh}
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"scorer_head takes float32; {name} is {t.dtype}")
         if t.device != h.device:
             raise ValueError(f"{name} is on {t.device}, h on {h.device}")
-    if h.dim() != 2 or wd.dim() != 2 or wd.shape[0] != h.shape[1] or \
-            tuple(bd.shape) != (wd.shape[1],) or \
-            tuple(wh.shape) != (wd.shape[1], 2) or tuple(bh.shape) != (2,):
+    grouped = h.dim() == 3
+    lead = tuple(h.shape[:1]) if grouped else ()
+    if h.dim() != 2 + len(lead) or wd.dim() != 2 + len(lead) or \
+            tuple(wd.shape[:-1]) != tuple(h.shape[:-2]) + (h.shape[-1],) or \
+            tuple(bd.shape) != lead + (wd.shape[-1],) or \
+            tuple(wh.shape) != lead + (wd.shape[-1], 2) or \
+            tuple(bh.shape) != lead + (2,):
         raise ValueError(
             "scorer_head takes h (M, feat), wd (feat, dense), bd (dense,), "
-            f"wh (dense, 2), bh (2,); got "
-            f"{[tuple(t.shape) for t in tensors.values()]}")
+            "wh (dense, 2), bh (2,), or each with a leading member axis; "
+            f"got {[tuple(t.shape) for t in tensors.values()]}")
     if h.device.type == "cpu":
-        return ref.scorer_head(h, wd, bd, wh, bh)
+        return (ref.scorer_head_grouped if grouped else ref.scorer_head)(
+            h, wd, bd, wh, bh)
     if h.device.type != "cuda":
         raise ValueError(f"scorer_head runs on cpu or cuda, not {h.device}")
-    M, feat = h.shape
-    dense = wd.shape[1]
+    q = h.shape[0] if grouped else 1
+    M, feat = h.shape[-2:]
+    dense = wd.shape[-1]
     if dense > MAX_DENSE:
         raise ValueError(f"the kernel takes at most {MAX_DENSE} dense "
                          f"units; got {dense}")
     build.check_launchable(*tensors.values())
-    out = torch.empty((M, 2), dtype=torch.float32, device=h.device)
-    build.launch(build.load("scorer_head", SIGNATURES).scorer_head_f32,
+    out = torch.empty(lead + (M, 2), dtype=torch.float32, device=h.device)
+    build.launch(build.load("scorer_head", SIGNATURES | GROUPED_SIGNATURES)
+                 .scorer_head_grouped_f32,
                  h.device, h.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-                 wh.data_ptr(), bh.data_ptr(), out.data_ptr(), M, feat,
+                 wh.data_ptr(), bh.data_ptr(), out.data_ptr(), q, M, feat,
                  dense, what=f"scorer_head at h {tuple(h.shape)}, "
                              f"wd {tuple(wd.shape)}")
     scorer_head.launches += 1
+    if grouped:
+        scorer_head.grouped_launches += 1
     return out
 
 
 scorer_head.launches = 0
+scorer_head.grouped_launches = 0

@@ -165,6 +165,111 @@ def test_scorer_head_rows_are_bit_equal_across_m(cuda, feat, dense):
                            full[-m:]), m
 
 
+# -- the grouped launches of the stacked superbatch ---------------------------
+
+@pytest.mark.parametrize("q", [2, 3, 8])
+@pytest.mark.parametrize("i", range(len(FAMILY_LAYERS)),
+                         ids=[f"H{h}_{ci}to{co}" for h, ci, co in FAMILY_LAYERS])
+def test_grouped_conv_members_equal_the_ungrouped_kernel(cuda, i, q):
+    """One launch for Q members; member m's output is bit for bit the
+    ungrouped kernel's on (x[m], w[m], b[m]), and within 1e-4 of the
+    plain version."""
+    h, cin, cout = FAMILY_LAYERS[i]
+    parts = [_inputs(64, h, cin, cout, seed=100 * i + m, device=cuda)
+             for m in range(q)]
+    x, w, b = (torch.stack([p[k] for p in parts]) for k in range(3))
+    before = (cs.conv_scorer.launches, cs.conv_scorer.grouped_launches)
+    got = cs.conv_scorer(x, w, b)
+    torch.cuda.synchronize()
+    assert (cs.conv_scorer.launches, cs.conv_scorer.grouped_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.shape == (q, 64, -(-h // 2), -(-h // 2), cout)
+    for m in range(q):
+        assert torch.equal(got[m], cs.conv_scorer(*parts[m])), m
+    assert_allclose(got.cpu().numpy(),
+                    ref.conv_scorer_grouped(x, w, b).cpu().numpy(),
+                    rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("q", [2, 3, 8])
+@pytest.mark.parametrize("m", [1, 20, 64, 1024])
+@pytest.mark.parametrize("feat,dense", FAMILY_HEADS[:4])
+def test_grouped_scorer_head_members_equal_the_ungrouped_kernel(
+        cuda, feat, dense, m, q):
+    """One launch for Q members, each member bit for bit the ungrouped
+    kernel's, at the M where the rows a thread (R) flips from 1 to 2 at
+    64 dense units (M 1024) and where it does not."""
+    g = torch.Generator().manual_seed(feat + m + q)
+    args = [t.to(cuda) for t in (
+        torch.rand(q, m, feat, generator=g),
+        torch.randn(q, feat, dense, generator=g) * (2 / feat) ** 0.5,
+        0.1 * torch.randn(q, dense, generator=g),
+        torch.randn(q, dense, 2, generator=g) / dense ** 0.5,
+        0.1 * torch.randn(q, 2, generator=g))]
+    before = (sh.scorer_head.launches, sh.scorer_head.grouped_launches)
+    got = sh.scorer_head(*args)
+    torch.cuda.synchronize()
+    assert (sh.scorer_head.launches, sh.scorer_head.grouped_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for j in range(q):
+        # a member's own tensors (a slice of bh is not 16-byte aligned)
+        own = [a[j].clone() for a in args]
+        assert torch.equal(got[j], sh.scorer_head(*own)), j
+    assert_allclose(got.cpu().numpy(),
+                    ref.scorer_head_grouped(*args).cpu().numpy(),
+                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sig", [(2, 8, 16, 25), (5, 32, 64, 100)])
+def test_superbatch_equals_bucketed_layer(cuda, sig):
+    """A stacked superbatch of 3 members launches each conv layer and
+    the head once, and each member equals the bucketed layer on its own
+    chunk and params bit for bit."""
+    arch = ops.OperatorArch("sb", *sig)
+    params = [ops.init_operator(arch, torch.Generator().manual_seed(g))
+              for g in range(3)]
+    x = np.random.default_rng(sig[0]).uniform(
+        size=(3, 64, sig[3], sig[3], 3)).astype(np.float32)
+    rt = rt_mod.OperatorRuntime()
+    before = (cs.conv_scorer.launches, sh.scorer_head.launches)
+    gp, gc = rt._dispatch(sig, rt_mod.stack_params(params), x, kind="super")
+    torch.cuda.synchronize()
+    assert (cs.conv_scorer.launches - before[0],
+            sh.scorer_head.launches - before[1]) == (sig[0], 1)
+    for g in range(3):
+        p, c = rt._dispatch(sig, params[g], x[g], kind="bucketed")
+        assert torch.equal(gp[g], p) and torch.equal(gc[g], c), g
+
+
+def test_pinned_staging_is_not_refilled_under_a_copy(cuda):
+    """Six same-shape chunks dispatched back to back, each copied from a
+    page-locked block of PyTorch's caching host allocator while the card
+    is held busy, their sources overwritten before any result is read:
+    no block was handed out again under a queued copy, so every result
+    is its own chunk's, bit for bit the result of that chunk scored
+    alone."""
+    arch = ops.OperatorArch("pin", 5, 32, 64, 100)
+    params = ops.init_operator(arch, torch.Generator().manual_seed(0))
+    sig = rt_mod.arch_signature(arch)
+    rng = np.random.default_rng(0)
+    chunks = [rng.uniform(size=(1024, 100, 100, 3)).astype(np.float32)
+              for _ in range(6)]
+    alone = rt_mod.OperatorRuntime()
+    want = []
+    for x in chunks:
+        p, c = alone._dispatch(sig, params, x, kind="bucketed")
+        want.append((p.cpu(), c.cpu()))
+    rt = rt_mod.OperatorRuntime()
+    torch.cuda._sleep(50_000_000)       # hold the card: the copies queue
+    outs = [rt._dispatch(sig, params, x, kind="bucketed") for x in chunks]
+    for x in chunks:
+        x[:] = -1.0
+    torch.cuda.synchronize()
+    for (p, c), (wp, wc) in zip(outs, want):
+        assert torch.equal(p.cpu(), wp) and torch.equal(c.cpu(), wc)
+    assert rt.pinned_copies == 6
+
+
 def test_training_runs_on_the_card(cuda):
     arch = ops.OperatorArch("cuda_train", 2, 8, 16, 25)
     rng = np.random.default_rng(1)
@@ -462,3 +567,63 @@ def test_engine_serves_granite_through_the_kernels(cuda):
         model.blocks[0].ffn(x)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def test_fleet_equals_standalone_on_the_card(cuda):
+    """tests/test_fleet.py's 8-query workload at 0.1 h on the card: the
+    uncontended fleet's Progress of every query is its standalone run's,
+    bit for bit, with fewer dispatches, stacked superbatches through the
+    grouped kernels, and no retrace."""
+    from repro_torch.core import landmarks as lm_mod
+    from repro_torch.core.fleet import FleetScheduler, make_executor
+    from repro_torch.core.hardware import YOLO_V3
+    from repro_torch.core.query import Query, make_env
+    from repro_torch.core.training import FrameBank
+    from repro_torch.core.video import QUERY_CLASS, Video, corpus
+    specs = [("JacksonH", "retrieval", {"max_passes": 2}),
+             ("Banff", "retrieval", {"max_passes": 2}),
+             ("JacksonH", "count_max", {"max_passes": 2}),
+             ("Miami", "count_max", {"max_passes": 2}),
+             ("Banff", "tagging", {}), ("Miami", "tagging", {}),
+             ("Banff", "count_avg", {}), ("Miami", "count_median", {})]
+    videos = {n: Video(corpus(hours=0.1)[n])
+              for n in ("JacksonH", "Banff", "Miami")}
+    stores = {n: lm_mod.build_landmarks(v, 30, YOLO_V3)
+              for n, v in videos.items()}
+    banks = {n: FrameBank(v) for n, v in videos.items()}
+
+    def executor(cam, kind):
+        env = make_env(videos[cam], Query(kind, QUERY_CLASS[cam]),
+                       stores[cam], bank=banks[cam], train_steps=5)
+        ex = make_executor(env, full_family=False)
+        if kind == "tagging":
+            ex.levels = (30, 10, 1)
+        return ex
+
+    solo, solo_calls = [], 0
+    for cam, kind, kw in specs:
+        rt = rt_mod.OperatorRuntime()
+        prev = rt_mod.set_runtime(rt)
+        try:
+            solo.append(executor(cam, kind).run(**kw))
+        finally:
+            rt_mod.set_runtime(prev)
+        solo_calls += rt.calls
+    rt = rt_mod.OperatorRuntime()
+    prev = rt_mod.set_runtime(rt)
+    grouped = cs.conv_scorer.grouped_launches
+    try:
+        sched = FleetScheduler(contended=False)
+        for i, (cam, kind, kw) in enumerate(specs):
+            sched.add(f"q{i}", cam, executor(cam, kind), **kw)
+        with rt_mod.TraceGuard(rt):
+            fleet = sched.run()
+    finally:
+        rt_mod.set_runtime(prev)
+    for i, mine in enumerate(solo):
+        got = fleet[f"q{i}"]
+        assert (got.points, got.bytes_up, got.done_t, got.op_switches) == \
+            (mine.points, mine.bytes_up, mine.done_t, mine.op_switches), i
+    assert sched.stats["dispatches"] < solo_calls
+    assert rt.super_calls > 0
+    assert cs.conv_scorer.grouped_launches > grouped
