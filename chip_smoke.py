@@ -25,7 +25,17 @@ decode-attention and (for granite) grouped expert matmul kernels against
 their plain versions at the shapes serving the model gives them, the
 full-width model on its kernel path against its plain path (float32,
 then bfloat16), and 16 requests served by ``ServeEngine`` through the
-kernels, untraced and then traced; and the attention and norm kernels at
+kernels, untraced and then traced. The recurrent models, jamba-v0.1-52b
+(Mamba, attention and MoE; full width, one 8-layer period) and
+xlstm-125m (mLSTM and sLSTM; whole): the expert matmul, norm and
+attention kernels at jamba's shapes and the norm at xlstm's width, each
+model's float32 kernel path against its plain path, 16 requests served
+(bfloat16, untraced and traced), and the recurrent mixers' eager scans
+timed alone; llava-next-34b's and musicgen-large's prefills at full
+width (2 layers each) with their prefix embeddings (1024 image patches;
+500 audio frames, musicgen's kernels first checked at its shapes),
+kernel path against plain path;
+and the attention and norm kernels at
 the head shapes and widths of the other accepted zoo configs
 (gemma3-12b's head dim 256, llama4-maverick-400b-a17b's 5 and
 granite-20b's 48 query heads per kv head, granite-20b's 6144 wide norm). It prints the results, the card's own
@@ -118,6 +128,43 @@ WIDE_RMS_ARCH = "granite-20b"
 WIDE_RMS_SHAPES = ((2048, torch.bfloat16), (8, torch.bfloat16),
                    (2048, torch.float32))
 GROUP_ARCHS = ("llama4-maverick-400b-a17b", "granite-20b")
+# the recurrent and prefix-embedding configs. jamba-v0.1-52b at full width
+# with its depth cut to one 8-layer period (1 attention, 7 Mamba, 4 MoE
+# layers; 13.3 B parameters, 26.6 GB in bf16, 53 GB in float32): its 32
+# layers (104 GB in bf16) do not fit one card. xlstm-125m whole.
+# The frontends' prefills at full width, 2 layers each: llava-next-34b's
+# 1024 image-patch embeddings (its config's num_prefix_embeds) before 512
+# tokens; musicgen-large's 500 audio frames (a 10 s melody prompt at
+# EnCodec's 50 Hz) before 1000 tokens, the 30 s it generates
+HYBRID_ARCH = "jamba-v0.1-52b"
+XLSTM_ARCH = "xlstm-125m"
+VLM_ARCH = "llava-next-34b"
+MUSIC_ARCH = "musicgen-large"
+CUT_LAYERS = {HYBRID_ARCH: 8, VLM_ARCH: 2, MUSIC_ARCH: 2}
+PREFIXES = {VLM_ARCH: (1024, 512), MUSIC_ARCH: (500, 1000)}
+# musicgen-large's norm (d 2048) and attention (32/32 heads of 64) of its
+# 1500-row prefill and an 8-slot tick
+MUSIC_RMS_SHAPES = ((1500, torch.bfloat16), (8, torch.bfloat16))
+MUSIC_FLASH_SHAPES = ((1500, torch.bfloat16), (1500, torch.float32))
+# jamba's norm of a prefill and of a tick, a 2048-token prompt's attention
+# (32/8 heads of 128); xlstm's 768-wide norm of a prefill
+HYBRID_RMS_SHAPES = ((2048, torch.bfloat16), (8, torch.bfloat16),
+                     (2048, torch.float32))
+HYBRID_FLASH_SHAPES = ((2048, torch.bfloat16), (2048, torch.float32))
+XLSTM_RMS_SHAPES = ((2048, torch.bfloat16),)
+# jamba's expert products: 16 experts, capacity 8 in an 8-slot tick and
+# 320 in a 2048-token prompt (ceil(2048*2*1.25/16)); 4096 -> 14336 for
+# the gate and up products, 14336 -> 4096 for the down product
+HYBRID_GMM_CAPS = (8, 320)
+HYBRID_GMM_DIMS = ((4096, 14336), (14336, 4096))
+# prompts the recurrent mixers' chunked scans take (up to their chunk of
+# 512 or 256 tokens, or a multiple of it): the parity phases' four, and
+# the serves' draws, 128-256 tokens or one of 512, 1024, 2048
+RECURRENT_PROMPTS = (5, 77, 1024, 2048)
+RECURRENT_LONG = (512, 1024, 2048)
+# the mixers alone: a prompt's prefill and an 8-slot decode step
+SCAN_TOKENS, SCAN_SLOTS = 2048, 8
+HYBRID_LABEL = "C=320 4096->14336 bfloat16"   # jamba's row in the kernels line
 # the stacked superbatch: members of a grouped launch checked against the
 # ungrouped kernel (the fleet's group_max is 8), images a member in the
 # check, the head's row counts (the small layer's 20 real rows, the
@@ -786,12 +833,15 @@ def device_busy(prof, kernels=(("conv_scorer", "conv3x3_bias_relu"),
     """Device time traced during a run: all kernels and copies, each
     named kernel's share (``(label, name substring)`` pairs), and the
     largest items. Empty when the trace holds no device time."""
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        rows.append((float(us) * 1e-6, e.key, e.count))
+    # summed from the trace's raw events by name: ``key_averages`` builds
+    # a Python object an event, minutes for the million launches of a
+    # serve whose sLSTM runs one eager step a token
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (t + e.duration_ns(), n + 1)
+    rows = [(t * 1e-9, k, n) for k, (t, n) in by_name.items()]
     total = sum(r[0] for r in rows)
     if total <= 0:
         return {}
@@ -1121,18 +1171,21 @@ def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
     return rows
 
 
-def moe_kernel_phase(device) -> dict:
+def moe_kernel_phase(device, arch: str = MOE_ARCH, caps=GMM_CAPS,
+                     dims=GMM_DIMS) -> dict:
     """The grouped expert matmul against its plain version at the shapes
-    serving granite-moe-3b-a800m gives it (40 experts; capacity 8 in a
-    decode tick, 32 to 512 in a prefill, one ragged; 1536 -> 512 for
-    the gate and up products, 512 -> 1536 for the down product), in
-    bfloat16 and float32, timed beside the plain version and one
-    ``torch.bmm`` (the yardstick, never called by the port). x has unit
-    entries, as a normed token does, and w the init's 1/sqrt(fan-in)."""
-    E = get_config(MOE_ARCH).num_experts
+    serving ``arch`` gives it (granite-moe-3b-a800m: 40 experts, capacity
+    8 in a decode tick, 32 to 512 in a prefill, one ragged, 1536 -> 512
+    for the gate and up products, 512 -> 1536 for the down product;
+    jamba-v0.1-52b: 16 experts, ``HYBRID_GMM_CAPS`` and
+    ``HYBRID_GMM_DIMS``), in bfloat16 and float32, timed beside the plain
+    version and one ``torch.bmm`` (the yardstick, never called by the
+    port). x has unit entries, as a normed token does, and w the init's
+    1/sqrt(fan-in)."""
+    E = get_config(arch).num_experts
     rows = {}
-    for C in GMM_CAPS:
-        for d, f in GMM_DIMS:
+    for C in caps:
+        for d, f in dims:
             for dt in (torch.bfloat16, torch.float32):
                 x = _randn((E, C, d), dt, device, C + d)
                 w = (_randn((E, d, f), torch.float32, device, C + d + 1)
@@ -1186,6 +1239,32 @@ def lm_launches():
             "moe_gmm": gmm.moe_gmm.launches}
 
 
+def kernels_of(cfg, decode: bool = True) -> set:
+    """The LM kernels a forward of ``cfg`` launches: the norms always,
+    the attention kernels where a layer attends (decode attention only
+    in a decode tick), the expert matmul where a layer is MoE."""
+    mixers = {s.mixer for s in cfg.pattern}
+    used = {"rmsnorm"}
+    if mixers & {"attn", "attn_window"}:
+        used |= {"flash_attention", "decode_attention"} if decode else \
+            {"flash_attention"}
+    if any(s.ffn == "moe" for s in cfg.pattern):
+        used.add("moe_gmm")
+    return used
+
+
+def served_config(arch: str, **overrides):
+    """``arch``'s published config, its depth cut to ``CUT_LAYERS``."""
+    cfg = get_config(arch)
+    if arch in CUT_LAYERS:
+        overrides = {"num_layers": CUT_LAYERS[arch], **overrides}
+    return cfg.scaled(**overrides)
+
+
+def recurrent(cfg) -> bool:
+    return any(s.mixer in ("mamba", "mlstm", "slstm") for s in cfg.pattern)
+
+
 @contextlib.contextmanager
 def recorded_routes(log, label):
     """Append ``(label[0], top-k experts)`` to ``log`` at every MoE
@@ -1212,7 +1291,6 @@ def _serve_both(model, prompts, max_new):
     prefills ("prefill", r), the engine's prefills ("again", r), which
     repeat them, and its ticks ("tick", {slot: r})."""
     out = {}
-    is_moe = model.cfg.num_experts > 0
     for path in ("kernel", "plain"):
         ctx = plain_lm_path() if path == "plain" else contextlib.nullcontext()
         log, label = [], [None]
@@ -1243,10 +1321,9 @@ def _serve_both(model, prompts, max_new):
                 res = eng.run()
                 tokens = [res[r] for r in rids]
         moved = {k: lm_launches()[k] - v for k, v in before.items()}
-        used = ("rmsnorm", "flash_attention") + (
-            ("decode_attention",) if max_new else ()) + (
-            ("moe_gmm",) if is_moe else ())
-        check(all(moved[k] for k in used) if path == "kernel" else
+        used = kernels_of(model.cfg, decode=bool(max_new))
+        check(all(bool(moved[k]) == (k in used) for k in moved)
+              if path == "kernel" else
               not any(moved.values()), f"{path} path launches {moved}")
         out[path] = (torch.stack([lg[0, -1] for lg, _ in pre]).float(),
                      [c for _, c in pre], tokens, log)
@@ -1290,7 +1367,7 @@ def unit_scores(model) -> None:
     the scores have unit variance, as in a trained model."""
     cfg = model.cfg
     with torch.no_grad():
-        for b in model.blocks:
+        for b in (b for b in model.blocks if b.attends):
             b.mixer.wq.mul_((attention.padded_heads(cfg.num_heads)
                              / cfg.d_model) ** 0.5)
             b.mixer.wk.mul_((cfg.num_kv_heads / cfg.d_model) ** 0.5)
@@ -1351,21 +1428,27 @@ def lm_parity_phase(device) -> dict:
     return out
 
 
-def moe_parity_phase(device) -> dict:
-    """granite-moe-3b-a800m at full width and depth, random weights from
-    one CUDA generator seed with unit-variance scores (F3), kernel path
-    against plain path, float32 then bfloat16. A near-tie at the k-th
-    expert can flip a route between two computations that differ by
-    rounding, which changes a token's output by O(gate weight); so the
-    phase counts the (token, layer) top-8 expert sets that differ. In
-    float32 at most ``ROUTE_LIMIT`` of them may, and the requests whose
-    routes all agree keep their prefill logits within 1e-3 and their
-    greedy tokens identical. In bfloat16 it reports."""
+def parity_phase(device, arch: str = MOE_ARCH,
+                 dtypes=("float32", "bfloat16")) -> dict:
+    """``arch`` at full width (jamba-v0.1-52b cut to one period), random
+    weights from one CUDA generator seed with unit-variance scores (F3),
+    kernel path against plain path, in each of ``dtypes``: the prefill
+    logits and the engine's greedy tokens of four prompts (lengths the
+    recurrent mixers' chunks take, for a recurrent model). In an MoE
+    model a near-tie at the k-th expert can flip a route between two
+    computations that differ by rounding, which changes a token's output
+    by O(gate weight); so the phase counts the (token, layer) top-k
+    expert sets that differ. In float32 at most ``ROUTE_LIMIT`` of them
+    may, and the requests whose routes all agree keep their prefill
+    logits within 1e-3 and their greedy tokens identical. In bfloat16 it
+    reports."""
     out = {}
-    for cdt in ("float32", "bfloat16"):
-        cfg = get_config(MOE_ARCH).scaled(compute_dtype=cdt)
+    for cdt in dtypes:
+        cfg = served_config(arch, compute_dtype=cdt)
+        lens = RECURRENT_PROMPTS if recurrent(cfg) else (5, 77, 1031, 2047)
         prompts = [np.random.default_rng(s).integers(0, cfg.vocab_size, n)
-                   for s, n in enumerate((5, 77, 1031, 2047))]
+                   for s, n in enumerate(lens)]
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = tf.init_model(cfg, torch.Generator(device=device)
                               .manual_seed(0), device)
@@ -1377,7 +1460,7 @@ def moe_parity_phase(device) -> dict:
               lk.shape == (4, cfg.vocab_size),
               f"{cdt} prefill logits {tuple(lk.shape)}")
         diff, total = route_diffs(rk, rp, len(prompts))
-        share = sum(diff) / sum(total)
+        share = sum(diff) / max(sum(total), 1)
         dlogit = (lk - lp).abs().max(dim=-1).values.tolist()
         agree = [sum(a == b for a, b in zip(x, y)) / len(y)
                  for x, y in zip(tk, tp)]
@@ -1387,16 +1470,19 @@ def moe_parity_phase(device) -> dict:
                "dlogit_by_request": dlogit, "token_agreement_by_request":
                agree, "routes_compared": sum(total),
                "routes_differing": sum(diff), "route_share": share,
-               "routes_differing_by_request": diff}
-        print(f"parity {MOE_ARCH} {cdt}, unit scores ({cfg.num_layers}L "
-              f"d{cfg.d_model}, {cfg.num_experts} experts top-"
-              f"{cfg.top_k}, init {t_init:.2f} s): prefill max|dlogit| by "
-              f"request " + " ".join(f"{x:.3e}" for x in dlogit) +
+               "routes_differing_by_request": diff,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        routes = (f"; top-{cfg.top_k} expert sets differing {sum(diff)} of "
+                  f"{sum(total)} (token, layer) routes = {share:.2e}, by "
+                  f"request {diff}") if cfg.num_experts else ""
+        print(f"parity {arch} {cdt}, unit scores ({cfg.num_layers}L "
+              f"d{cfg.d_model}, prompts {list(lens)}, init {t_init:.2f} s, "
+              f"peak memory {row['peak_mem_gb']:.2f} GB): prefill "
+              f"max|dlogit| by request " +
+              " ".join(f"{x:.3e}" for x in dlogit) +
               f", / max|logit| {row['rel_dlogit']:.3e}; greedy tokens "
-              f"agree by request {agree}; top-{cfg.top_k} expert sets "
-              f"differing {sum(diff)} of {sum(total)} (token, layer) "
-              f"routes = {share:.2e}, by request {diff}; kernel {tk[1]} "
-              f"plain {tp[1]}")
+              f"agree by request {agree}{routes}; kernel {tk[1]} plain "
+              f"{tp[1]}")
         if cdt == "float32":
             check(share <= ROUTE_LIMIT, f"float32: {share:.2e} of the "
                   f"routes differ (limit {ROUTE_LIMIT})")
@@ -1412,23 +1498,151 @@ def moe_parity_phase(device) -> dict:
     return out
 
 
+def scan_phase(device) -> dict:
+    """The recurrent mixers alone at full width in bfloat16, random
+    weights: host wall (each ending in a synchronize) of one mixer's
+    prefill of a SCAN_TOKENS-token prompt (jamba's Mamba: 4 chunks of
+    the log-depth scan; xlstm's mLSTM: 8 chunks; its sLSTM: 2048 eager
+    steps, one a token) and of one decode step of SCAN_SLOTS slots. The
+    JAX package computes these with XLA ops and no Pallas kernel, so the
+    port's are PyTorch ops and launch none of its kernels."""
+    S, B = SCAN_TOKENS, SCAN_SLOTS
+    out = {}
+    for arch, mixer in ((HYBRID_ARCH, "mamba"), (XLSTM_ARCH, "mlstm"),
+                        (XLSTM_ARCH, "slstm")):
+        cfg = get_config(arch).scaled(compute_dtype="bfloat16")
+        g = torch.Generator(device=device).manual_seed(0)
+        w = {n: t if n in tf.FLOAT32_WEIGHTS else t.bfloat16()
+             for n, t in tf._draw_mixer(cfg, mixer, g).items()}
+        block = tf.recurrent_mixer(cfg, mixer, w)
+        x = torch.randn(1, S, cfg.d_model, generator=g, device=device
+                        ).bfloat16()
+        xt = torch.randn(B, 1, cfg.d_model, generator=g, device=device
+                         ).bfloat16()
+        cache = next(c for c, spec in zip(
+            tf.init_caches(cfg.scaled(num_layers=len(cfg.pattern)), B, 1,
+                           device), cfg.pattern) if spec.mixer == mixer)
+        before = lm_launches()
+        walls = {}
+        for name, fn in (("prefill", lambda: block(x)),
+                         ("decode", lambda: block.decode(xt, dict(cache)))):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t) / 3
+        check(lm_launches() == before, f"{mixer} launched an LM kernel")
+        row = {"prefill_s": walls["prefill"],
+               "prefill_us_per_token": 1e6 * walls["prefill"] / S,
+               "decode_ms": 1e3 * walls["decode"]}
+        print(f"scan {arch} {mixer} (d{cfg.d_model}, bf16): prefill of "
+              f"{S} tokens {row['prefill_s']:.4f} s = "
+              f"{row['prefill_us_per_token']:.1f} us a token; decode step "
+              f"of {B} slots {row['decode_ms']:.3f} ms (host wall)")
+        out[mixer] = row
+        del block, w, x, cache
+        free_memory()
+    return out
+
+
+def prefix_phase(device, arch: str = VLM_ARCH) -> dict:
+    """A frontend model's prefill at full width with its depth cut to
+    ``CUT_LAYERS`` (llava-next-34b: 2 of 60 layers, 56/8 heads of 128;
+    musicgen-large: 2 of 48, 32/32 of 64), its ``PREFIXES`` prefix
+    embeddings before its tokens, kernel path against plain path, random
+    weights with unit-variance scores (F3): in float32 the logits within
+    1e-3; in bfloat16 reported. Each path's launches are counted over its
+    one prefill: the kernel path's norms and flash attention all launch,
+    the plain path's none."""
+    n_prefix, n_tokens = PREFIXES[arch]
+    out = {}
+    for cdt in ("float32", "bfloat16"):
+        cfg = served_config(arch, compute_dtype=cdt)
+        torch.cuda.reset_peak_memory_stats()
+        model = tf.init_model(cfg, torch.Generator(device=device)
+                              .manual_seed(0), device)
+        unit_scores(model)
+        g = torch.Generator(device=device).manual_seed(1)
+        prefix = torch.randn(1, n_prefix, cfg.d_model, generator=g,
+                             device=device)
+        tokens = torch.randint(0, cfg.vocab_size, (1, n_tokens),
+                               generator=g, device=device)
+        res = {}
+        for path in ("kernel", "plain"):
+            ctx = plain_lm_path() if path == "plain" else \
+                contextlib.nullcontext()
+            before = lm_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with ctx:
+                logits, caches = tf.prefill(model, tokens, prefix)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            moved = {k: lm_launches()[k] - v for k, v in before.items()}
+            want = {"rmsnorm": 2 * cfg.num_layers + 1,
+                    "flash_attention": cfg.num_layers} if path == "kernel" \
+                else {}
+            check(all(moved[k] == want.get(k, 0) for k in moved),
+                  f"{arch} {path} path launches {moved}")
+            res[path] = (logits[0, -1].float(), caches, wall, moved)
+        (lk, ck, wk, launches), (lp, cp, wp, _) = res["kernel"], \
+            res["plain"]
+        S = n_prefix + n_tokens
+        check(bool(torch.isfinite(lk).all()) and
+              lk.shape == (cfg.vocab_size,) and ck[0]["k"].shape[1] == S,
+              f"{arch} {cdt}: logits {tuple(lk.shape)}, k cache "
+              f"{tuple(ck[0]['k'].shape)}")
+        dlogit = float((lk - lp).abs().max())
+        dk = [float((a["k"].float() - b["k"].float()).abs().max())
+              for a, b in zip(ck, cp)]
+        row = {"max_abs_dlogit": dlogit,
+               "rel_dlogit": dlogit / float(lp.abs().max()),
+               "max_abs_dk_by_layer": dk, "kernel_wall_s": wk,
+               "plain_wall_s": wp, "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"prefill {arch} {cdt}, unit scores ({cfg.num_layers} of "
+              f"{get_config(arch).num_layers}L d{cfg.d_model}, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}; {n_prefix} prefix embeddings + "
+              f"{n_tokens} tokens): max|dlogit| {dlogit:.3e}, "
+              f"/ max|logit| {row['rel_dlogit']:.3e}; max|dk| by layer "
+              + " ".join(f"{x:.1e}" for x in dk) +
+              f"; host wall kernel path {wk:.3f} s, plain {wp:.3f} s; "
+              f"launches {launches}; peak memory {row['peak_mem_gb']:.2f} GB")
+        if cdt == "float32":
+            check(dlogit <= LOGIT_TOL, f"{arch} float32 logits differ by "
+                  f"{dlogit}")
+        out[cdt] = row
+        del model, res, ck, cp
+        free_memory()
+    return out
+
+
 # -- phase 7: the LM main path, serving a model ------------------------------
 
 def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
     """16 requests submitted at once to ``ServeEngine`` (8 slots, 4096
-    ring rows) serving the published ``arch`` (h2o-danube-1.8b or
-    granite-moe-3b-a800m, bfloat16) with random weights: prompts of
-    128-2048 tokens, 64 greedy tokens each. Host wall of each prefill
+    ring rows) serving the published ``arch`` (h2o-danube-1.8b,
+    granite-moe-3b-a800m, jamba-v0.1-52b cut to one period, xlstm-125m;
+    bfloat16) with random weights: prompts of 128-2048 tokens (for a
+    recurrent model 128-256 tokens or one of 512, 1024, 2048, lengths its
+    scans' chunks take), 64 greedy tokens each. Host wall of each prefill
     and each decode tick (each ends in the sampler's copy to the host,
     so the card has finished), time to first token per request, and the
-    LM kernels' launches: the model's kernels all launched, the grouped
-    expert matmul 3 times per MoE layer per forward."""
-    cfg = get_config(arch)
+    LM kernels' launches: the model's kernels all launched and no other,
+    the grouped expert matmul 3 times per MoE layer per forward."""
+    cfg = served_config(arch)
     torch.cuda.reset_peak_memory_stats()
     model = tf.init_model(cfg, torch.Generator(device=device).manual_seed(0),
                           device)
     rng = np.random.default_rng(0)
-    lens = rng.integers(128, 2049, size=16)
+    if recurrent(cfg):
+        lens = np.where(rng.random(16) < 0.5, rng.integers(128, 257, 16),
+                        rng.choice(RECURRENT_LONG, 16))
+    else:
+        lens = rng.integers(128, 2049, size=16)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
     eng = ServeEngine(model, slots=8, cache_len=4096)
     wall = {"prefill": 0.0, "decode": 0.0, "ticks": 0, "decoded": 0}
@@ -1463,7 +1677,8 @@ def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
     with profiler:
         res = eng.run()
         torch.cuda.synchronize()
-    t_wall = time.perf_counter() - t0
+        # the wall ends here: the profiler's exit then processes its trace
+        t_wall = time.perf_counter() - t0
     launches = lm_launches()
     check(sorted(res) == sorted(rids) and
           all(len(res[r]) == 64 for r in rids), "not every request finished")
@@ -1472,7 +1687,8 @@ def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
     n_moe = sum(cfg.pattern[i % len(cfg.pattern)].ffn == "moe"
                 for i in range(cfg.num_layers))
     forwards = len(first) + wall["ticks"]
-    check(all(v for k, v in launches.items() if k != "moe_gmm") and
+    used = kernels_of(cfg)
+    check(all(bool(v) == (k in used) for k, v in launches.items()) and
           launches["moe_gmm"] == 3 * n_moe * forwards,
           f"LM kernel launches {launches} over {forwards} forwards of "
           f"{n_moe} MoE layers")
@@ -1506,7 +1722,10 @@ def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
           f"a tick; TTFT p50 {out['ttft_p50_s']:.3f} s, max "
           f"{out['ttft_max_s']:.3f} s; peak memory {out['peak_mem_gb']:.2f} "
           f"GB; launches {launches}")
-    del eng, model
+    # the wrapped methods and the engine refer to each other through these
+    # names' cells: clearing them frees the model now, not at the next
+    # collection
+    del eng, model, prefill_into, tick
     free_memory()
     return out
 
@@ -1588,8 +1807,29 @@ def main() -> int:
     lm_rows.update(moe_kernel_phase(device))
     lm_rows.update(lm_kernel_phase(device, MOE_ARCH, MOE_RMS_SHAPES,
                                    MOE_FLASH_SHAPES))
-    moe_parity_phase(device)
+    parity_phase(device)
     moe_serve = serve_lm(device, MOE_ARCH)
+    # the recurrent models: jamba-v0.1-52b (one period at full width: 7
+    # Mamba layers, 1 attention, 4 MoE) and xlstm-125m (mLSTM and sLSTM,
+    # whole): their kernel shapes, float32 parity, the bf16 serve
+    lm_rows.update(moe_kernel_phase(device, HYBRID_ARCH, HYBRID_GMM_CAPS,
+                                    HYBRID_GMM_DIMS))
+    lm_rows.update(lm_kernel_phase(device, HYBRID_ARCH, HYBRID_RMS_SHAPES,
+                                   HYBRID_FLASH_SHAPES))
+    lm_rows.update(lm_kernel_phase(device, XLSTM_ARCH, XLSTM_RMS_SHAPES, (),
+                                   decode=False))
+    parity_phase(device, HYBRID_ARCH, dtypes=("float32",))
+    hybrid_serve = serve_lm(device, HYBRID_ARCH)
+    parity_phase(device, XLSTM_ARCH)
+    serve_lm(device, XLSTM_ARCH)
+    scan_phase(device)
+    # the frontends' prefills with their prefix embeddings: llava-next-34b
+    # (1024 image patches), musicgen-large (500 audio frames) after its
+    # kernels at its shapes
+    prefix_phase(device)
+    lm_rows.update(lm_kernel_phase(device, MUSIC_ARCH, MUSIC_RMS_SHAPES,
+                                   MUSIC_FLASH_SHAPES))
+    prefix_phase(device, MUSIC_ARCH)
     # the other accepted configs' head shapes and norm width
     lm_rows.update(lm_kernel_phase(device, WIDE_HEAD_ARCH, (),
                                    WIDE_FLASH_SHAPES, decode=False))
@@ -1601,6 +1841,13 @@ def main() -> int:
     # its five conv layers (the main path's largest dispatch); the bound
     # is the larger of their summed bytes and summed operations' times
     main_rows = [rows[s] for s in layers(MAIN_OP)]
+    # moe_gmm's entry: granite-moe-3b-a800m's rows (40 experts), and
+    # under "jamba" the row of a 2048-token prompt's gate and up products
+    # with the launches of jamba's serve
+    granite_rows = {k: r for k, r in lm_rows.items()
+                    if k[0] != "moe_gmm" or k[1].startswith("E=40 ")}
+    hybrid_rows = {k: r for k, r in lm_rows.items()
+                   if k[0] == "moe_gmm" and k[1].startswith("E=16 ")}
     t_ops = sum(r["flops"] for r in main_rows) / PEAK_FP32_FLOPS
     t_bytes = sum(r["bytes"] for r in main_rows) / PEAK_BYTES_PER_S
     print(card_line())
@@ -1622,8 +1869,12 @@ def main() -> int:
           for name, label in (("rmsnorm", "2048x2560 bfloat16"),
                               ("flash_attention", "B=1 S=2048 bfloat16"),
                               ("decode_attention", "bfloat16"))] +
-        [lm_line("moe_gmm", lm_rows, moe_serve["launches"]["moe_gmm"],
-                 "C=512 1536->512 bfloat16")] + [{
+        [lm_line("moe_gmm", granite_rows, moe_serve["launches"]["moe_gmm"],
+                 "C=512 1536->512 bfloat16") | {"jamba": {
+                     "shape": f"E=16 {HYBRID_LABEL}",
+                     **lm_line("moe_gmm", hybrid_rows,
+                               hybrid_serve["launches"]["moe_gmm"],
+                               HYBRID_LABEL)}}] + [{
         "name": "scorer_head", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scorer_head.cu",
         "replaces": "src/repro/core/runtime.py:200-201 (XLA matmuls, no "

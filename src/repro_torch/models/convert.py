@@ -7,7 +7,9 @@ stacked over periods on a leading ``layer`` axis, and the query heads
 are padded to the JAX package's tensor-parallel multiple. It unstacks the
 layer axis (layer ``p * len(pattern) + j`` is period p's position j) and
 keeps only the real query heads, whose padded partners the JAX model
-masks to exactly zero. An MoE FFN keeps its first ``num_experts``
+masks to exactly zero. Mamba, mLSTM and sLSTM mixers have no padded
+heads and carry across whole; blocks whose FFN is ``none`` have no
+``norm2`` and no ``ffn``. An MoE FFN keeps its first ``num_experts``
 experts and router columns, the JAX package's padded experts being
 dead (never routed to); the tree must hold ``padded_experts`` of them.
 """
@@ -41,23 +43,28 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
         weights["unembed"] = _t(tree["unembed"]["table"])
     for i in range(cfg.num_layers):
         p, j = divmod(i, n_pat)
-        blk = tree["blocks"][j]
-        mix, ffn = blk["mixer"], blk["ffn"]
-        if np.shape(mix["wq"])[-2] != hp:
-            raise ValueError(f"wq has {np.shape(mix['wq'])[-2]} heads; the "
-                             f"JAX package pads {h} to {hp}")
-        w = {"norm1": _t(blk["norm1"]["scale"][p]),
-             "norm2": _t(blk["norm2"]["scale"][p]),
-             "wq": _t(mix["wq"][p][:, :h]), "wk": _t(mix["wk"][p]),
-             "wv": _t(mix["wv"][p]), "wo": _t(mix["wo"][p][:h])}
-        if cfg.pattern[j].ffn == "moe":
+        spec, blk = cfg.pattern[j], tree["blocks"][j]
+        mix = blk["mixer"]
+        w = {"norm1": _t(blk["norm1"]["scale"][p])}
+        if spec.mixer in ("attn", "attn_window"):
+            if np.shape(mix["wq"])[-2] != hp:
+                raise ValueError(f"wq has {np.shape(mix['wq'])[-2]} heads; "
+                                 f"the JAX package pads {h} to {hp}")
+            w.update(wq=_t(mix["wq"][p][:, :h]), wk=_t(mix["wk"][p]),
+                     wv=_t(mix["wv"][p]), wo=_t(mix["wo"][p][:h]))
+        else:
+            w["mixer"] = {n: _t(a[p]) for n, a in mix.items()}
+        if spec.ffn != "none":
+            ffn = blk["ffn"]
+            w["norm2"] = _t(blk["norm2"]["scale"][p])
+        if spec.ffn == "moe":
             w["moe"] = moe.real_experts(
                 {n: _t(ffn[n][p]) for n in ("router", "wg", "wu", "wo")},
                 cfg.num_experts)
             if "shared" in ffn:
                 w["moe"]["shared"] = {n: _t(ffn["shared"][n][p])
                                       for n in ("wg", "wu", "wo")}
-        else:
+        elif spec.ffn == "dense":
             w.update(wg=_t(ffn["wg"][p]), wu=_t(ffn["wu"][p]),
                      ffn_wo=_t(ffn["wo"][p]))
         weights["layers"].append(w)

@@ -1,5 +1,6 @@
 """Foundational layers of the LM zoo: RMSNorm, the SwiGLU FFN, the
-embedding and the rotary position embedding.
+recurrent mixers' module, the embedding and the rotary position
+embedding.
 
 Ported from ``repro/models/layers.py``. The JAX package keeps float32
 weights and casts them to the compute type on every call; the port casts
@@ -45,6 +46,24 @@ class FFN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return swiglu(x, self.wg, self.wu, self.wo)
+
+
+class Mixer(nn.Module):
+    """A recurrent mixer of a served block (Mamba, mLSTM or sLSTM): its
+    frozen weights, and the module functions ``forward(x, w, **kw)`` and
+    ``decode(x, w, cache, **kw)`` that read them with ``kw`` (``d_state``
+    or ``n_heads``)."""
+
+    def __init__(self, w, forward, decode, **kw):
+        super().__init__()
+        self.w = nn.ParameterDict({n: frozen(t) for n, t in w.items()})
+        self.fns, self.kw = (forward, decode), kw
+
+    def forward(self, x: torch.Tensor):
+        return self.fns[0](x, self.w, **self.kw)
+
+    def decode(self, x: torch.Tensor, cache):
+        return self.fns[1](x, self.w, cache, **self.kw)
 
 
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,

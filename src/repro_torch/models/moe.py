@@ -47,9 +47,10 @@ def real_experts(p: Mapping[str, torch.Tensor],
                          f"package pads {n_experts} to "
                          f"{padded_experts(n_experts)}")
     out = dict(p)
-    out["router"] = p["router"][:, :n_experts].clone()
-    for n in ("wg", "wu", "wo"):
-        out[n] = p[n][:n_experts].clone()
+    if ep != n_experts:          # copies, so the padded draws can be freed
+        out["router"] = p["router"][:, :n_experts].clone()
+        for n in ("wg", "wu", "wo"):
+            out[n] = p[n][:n_experts].clone()
     return out
 
 

@@ -1,22 +1,24 @@
 """Model assembly for serving: embedding, a stack of blocks, the final
 norm and the LM head.
 
-Ported from ``repro/models/transformer.py`` for the ``attn`` and
-``attn_window`` mixers and the ``dense`` and ``moe`` FFNs, which is what
-h2o-danube-1.8b and granite-moe-3b-a800m are built of. The JAX package
-stacks each pattern
-position's weights over periods and scans over them; the port holds one
-``Block`` module per layer and loops over them, layer ``p * len(pattern)
-+ j`` being period p's pattern position j.
+Ported from ``repro/models/transformer.py``: every mixer (``attn``,
+``attn_window``, ``mamba``, ``mlstm``, ``slstm``) and FFN (``dense``,
+``moe``, ``none``) of the zoo, and the frontends' prefix embeddings
+(musicgen-large's audio frames, llava-next-34b's image patches: the
+caller passes them, as the JAX package's stubs do). The JAX package
+stacks each pattern position's weights over periods and scans over
+them; the port holds one ``Block`` module per layer and loops over them,
+layer ``p * len(pattern) + j`` being period p's pattern position j.
 
 Entry points:
   init_model(cfg, generator, device)      -> Transformer (random weights)
-  prefill(model, tokens)                  -> (last_logits, caches)
+  prefill(model, tokens, prefix_embeds)   -> (last_logits, caches)
   decode_step(model, caches, tokens, pos) -> (logits, caches), in place
   init_caches(cfg, batch, cache_len, device) -> caches
 ``models/convert.py::params_from_jax`` builds the model from the JAX
 package's weights instead. Weights are cast once, when the model is
-built, to ``cfg.compute_dtype``; norm scales stay float32.
+built, to ``cfg.compute_dtype``; norm scales and the weights the JAX
+package reads in float32 (``FLOAT32_WEIGHTS``) stay float32.
 """
 from __future__ import annotations
 
@@ -25,16 +27,16 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn as nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.kernels.ops import Device, resolve_device
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm, xlstm
 
-Caches = List[Dict[str, torch.Tensor]]
+Caches = List[Dict]
 
-# where the mixers and FFNs this slice does not port are queued
-_LATER = {"mamba": "ROADMAP.md §2 item 4 (the missing modules)",
-          "mlstm": "ROADMAP.md §2 item 4 (the missing modules)",
-          "slstm": "ROADMAP.md §2 item 4 (the missing modules)"}
+MIXERS = ("attn", "attn_window", "mamba", "mlstm", "slstm")
+FFNS = ("dense", "moe", "none")
+# mixer weights the JAX package casts to float32 where it reads them
+FLOAT32_WEIGHTS = ("A_log", "gn_scale", "r")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -42,44 +44,73 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a block this slice does not
-    port, naming the queue item that brings it."""
+    """Raise ``ValueError`` for a mixer or FFN the zoo does not have.
+    Every frontend is a stub whose prefix embeddings the caller passes
+    to ``prefill``."""
     for spec in cfg.pattern:
-        for part in (spec.mixer, spec.ffn):
-            if part in _LATER:
-                raise NotImplementedError(
-                    f"{cfg.name}: '{part}' blocks are not ported yet; "
-                    f"see {_LATER[part]}")
-        if spec.mixer not in ("attn", "attn_window") or \
-                spec.ffn not in ("dense", "moe"):
-            raise ValueError(f"unknown block {spec}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} "
-                                  "frontend is not ported yet")
+        if spec.mixer not in MIXERS or spec.ffn not in FFNS:
+            raise ValueError(f"{cfg.name}: unknown block {spec}")
+
+
+def check_prompt_length(cfg: ModelConfig, n: int) -> None:
+    """Raise ``ValueError`` unless the recurrent mixers' chunked scans
+    take an n-token prompt: up to their chunk, or a multiple of it (the
+    JAX package asserts the same rule)."""
+    mixers = {spec.mixer for spec in cfg.pattern}
+    if "mamba" in mixers:
+        ssm.chunk_of(n, ssm.CHUNK)
+    if "mlstm" in mixers:
+        ssm.chunk_of(n, xlstm.CHUNK)
+
+
+def recurrent_mixer(cfg: ModelConfig, mixer: str,
+                    w: Dict[str, torch.Tensor]) -> layers.Mixer:
+    """The ``mamba``, ``mlstm`` or ``slstm`` mixer over its weights."""
+    if mixer == "mamba":
+        return layers.Mixer(w, ssm.mamba_forward, ssm.mamba_decode,
+                            d_state=cfg.mamba_d_state)
+    fns = {"mlstm": (xlstm.mlstm_forward, xlstm.mlstm_decode),
+           "slstm": (xlstm.slstm_forward, xlstm.slstm_decode)}[mixer]
+    return layers.Mixer(w, *fns, n_heads=cfg.num_heads)
 
 
 class Block(nn.Module):
-    """One layer: attention, then the dense SwiGLU FFN, or the MoE FFN
-    when the weights hold ``moe`` (``models/moe.py``)."""
+    """One layer: its mixer (attention, Mamba, mLSTM or sLSTM), then the
+    dense SwiGLU FFN, the MoE FFN when the weights hold ``moe``
+    (``models/moe.py``), or no FFN (``ffn == "none"``, no ``norm2``)."""
 
-    def __init__(self, cfg: ModelConfig, window: Optional[int],
+    def __init__(self, cfg: ModelConfig, spec: BlockSpec,
                  w: Dict[str, torch.Tensor]):
         super().__init__()
-        self.window = window
+        self.window = spec.window
+        self.attends = spec.mixer in ("attn", "attn_window")
         self.norm1 = layers.RMSNorm(w["norm1"], cfg.norm_eps)
-        self.mixer = attention.Attention(
-            w["wq"], w["wk"], w["wv"], w["wo"], n_heads=cfg.num_heads,
-            n_kv=cfg.num_kv_heads, window=window, rope_theta=cfg.rope_theta)
-        self.norm2 = layers.RMSNorm(w["norm2"], cfg.norm_eps)
+        if self.attends:
+            self.mixer = attention.Attention(
+                w["wq"], w["wk"], w["wv"], w["wo"], n_heads=cfg.num_heads,
+                n_kv=cfg.num_kv_heads, window=spec.window,
+                rope_theta=cfg.rope_theta)
+        else:
+            self.mixer = recurrent_mixer(cfg, spec.mixer, w["mixer"])
+        self.norm2 = self.ffn = None
         if "moe" in w:
             self.ffn = moe.MoE(w["moe"], n_experts=cfg.num_experts,
                                top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor)
-        else:
+        elif "wg" in w:
             self.ffn = layers.FFN(w["wg"], w["wu"], w["ffn_wo"])
+        if self.ffn is not None:
+            self.norm2 = layers.RMSNorm(w["norm2"], cfg.norm_eps)
+
+    def _ffn(self, x):
+        return x if self.ffn is None else x + self.ffn(self.norm2(x))
 
     def forward(self, x, positions, emit_cache: bool):
-        out, (k, v) = self.mixer(self.norm1(x), positions)
+        h = self.norm1(x)
+        if not self.attends:
+            out, cache = self.mixer(h)
+            return self._ffn(x + out), cache if emit_cache else None
+        out, (k, v) = self.mixer(h, positions)
         cache = None
         if emit_cache:
             w = self.window
@@ -91,24 +122,34 @@ class Block(nn.Module):
                 k = torch.roll(k[:, -w:], S % w, dims=1)
                 v = torch.roll(v[:, -w:], S % w, dims=1)
             cache = {"k": k, "v": v}
-        x = x + out
-        return x + self.ffn(self.norm2(x)), cache
+        return self._ffn(x + out), cache
 
     def decode(self, x, cache, pos):
-        x = x + self.mixer.decode(self.norm1(x), cache, pos)
-        return x + self.ffn(self.norm2(x))
+        """One token a row; ``cache`` is updated in place (a ring row of
+        k, v written, or a recurrent state replaced)."""
+        h = self.norm1(x)
+        if self.attends:
+            out = self.mixer.decode(h, cache, pos)
+        else:
+            out, new = self.mixer.decode(h, cache)
+            cache.update(new)
+        return self._ffn(x + out)
 
 
 class Transformer(nn.Module):
     """The served model. ``weights``: float32 tensors in the JAX
     package's layout with the layer axis unstacked and only the real
     query heads: ``embed`` (V, d), ``unembed`` (V, d) unless the config
-    ties them, ``final_norm`` (d,), and per layer ``norm1``, ``norm2``
-    (d,), ``wq`` (d, H, D), ``wk``, ``wv`` (d, KV, D), ``wo`` (H, D, d),
-    ``wg``, ``wu`` (d, F), ``ffn_wo`` (F, d) for a dense FFN, or ``moe``
-    for an MoE FFN: ``router`` (d, E), ``wg``, ``wu`` (E, d, f), ``wo``
-    (E, f, d) of the E real experts, and optionally ``shared``
-    (``wg``, ``wu``, ``wo`` of a dense SwiGLU)."""
+    ties them, ``final_norm`` (d,), and ``layers``, an iterable of one
+    dict a layer, taken one at a time (a layer's float32 draw is cast
+    before the next is made): ``norm1`` (d,); for attention ``wq`` (d, H,
+    D), ``wk``, ``wv`` (d, KV, D), ``wo`` (H, D, d), else ``mixer`` (the
+    weights ``models/ssm.py`` or ``models/xlstm.py`` lists); and unless
+    the FFN is ``none``, ``norm2`` (d,) with ``wg``, ``wu`` (d, F),
+    ``ffn_wo`` (F, d) for a dense FFN, or ``moe`` for an MoE FFN:
+    ``router`` (d, E), ``wg``, ``wu`` (E, d, f), ``wo`` (E, f, d) of the
+    E real experts, and optionally ``shared`` (``wg``, ``wu``, ``wo`` of
+    a dense SwiGLU)."""
 
     def __init__(self, cfg: ModelConfig, weights: Dict, device: torch.device):
         super().__init__()
@@ -122,7 +163,8 @@ class Transformer(nn.Module):
         def cast_block(w):
             return {n: (cast_block(t) if isinstance(t, dict) else
                         t.to(device=device, dtype=torch.float32)
-                        if n.startswith("norm") else cast(t))
+                        if n.startswith("norm") or n in FLOAT32_WEIGHTS
+                        else cast(t))
                     for n, t in w.items()}
 
         self.embed = layers.frozen(cast(weights["embed"]))
@@ -130,8 +172,9 @@ class Transformer(nn.Module):
             layers.frozen(cast(weights["unembed"]))
         blocks = []
         for i, w in enumerate(weights["layers"]):
-            spec = cfg.pattern[i % len(cfg.pattern)]
-            blocks.append(Block(cfg, spec.window, cast_block(w)))
+            blocks.append(Block(cfg, cfg.pattern[i % len(cfg.pattern)],
+                                cast_block(w)))
+            del w           # freed before the next layer is drawn
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = layers.RMSNorm(
             weights["final_norm"].to(device), cfg.norm_eps)
@@ -159,7 +202,7 @@ def _draw(generator: torch.Generator, shape, scale: Optional[float] = None):
         fan_in = shape[-2] if len(shape) > 1 else shape[-1]
         scale = 1.0 / max(fan_in, 1) ** 0.5
     return torch.randn(shape, generator=generator, device=generator.device,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32).mul_(scale)
 
 
 def _draw_moe(cfg: ModelConfig, g: torch.Generator) -> Dict:
@@ -179,46 +222,103 @@ def _draw_moe(cfg: ModelConfig, g: torch.Generator) -> Dict:
     return p
 
 
+def _draw_mixer(cfg: ModelConfig, mixer: str, g: torch.Generator) -> Dict:
+    """One layer's Mamba, mLSTM or sLSTM weights with the distributions
+    of ``repro/models/ssm.py::init_mamba`` and
+    ``repro/models/xlstm.py::init_mlstm`` / ``init_slstm``: conv taps at
+    scale 0.5, Mamba's dt bias at 1.0, A_log = log(1..N), ones for D and
+    the head norms' scales, zeros for the biases."""
+    d, H = cfg.d_model, cfg.num_heads
+
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=torch.float32,
+                          device=g.device)
+
+    if mixer == "mamba":
+        di, N = d * cfg.mamba_expand, cfg.mamba_d_state
+        R = cfg.resolved_dt_rank
+        a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                       device=g.device))
+        return {"in_proj": _draw(g, (d, 2 * di)),
+                "conv_w": _draw(g, (cfg.mamba_d_conv, di), 0.5),
+                "conv_b": const(0.0, di),
+                "x_proj": _draw(g, (di, R + 2 * N)),
+                "dt_w": _draw(g, (R, di)), "dt_b": _draw(g, (di,), 1.0),
+                "A_log": a_log.expand(di, N).clone(), "D": const(1.0, di),
+                "out_proj": _draw(g, (di, d))}
+    if mixer == "mlstm":
+        di = d * cfg.mlstm_expand
+        return {"w_up": _draw(g, (d, 2 * di)),
+                "conv_w": _draw(g, (xlstm.CONV, di), 0.5),
+                "conv_b": const(0.0, di),
+                "wq": _draw(g, (di, di)), "wk": _draw(g, (di, di)),
+                "wv": _draw(g, (di, di)), "w_if": _draw(g, (di, 2 * H)),
+                "b_if": const(0.0, 2 * H), "gn_scale": const(1.0, di),
+                "w_down": _draw(g, (di, d))}
+    dh, ffs = d // H, xlstm.ff_size(d, cfg.slstm_ff_expand)
+    return {"w_in": _draw(g, (d, 4 * d)), "b_in": const(0.0, 4 * d),
+            "r": _draw(g, (H, dh, 4 * dh)), "gn_scale": const(1.0, d),
+            "ff_up": _draw(g, (d, 2 * ffs)), "ff_down": _draw(g, (ffs, d))}
+
+
+def _draw_layer(cfg: ModelConfig, spec: BlockSpec,
+                g: torch.Generator) -> Dict:
+    d, kv, hd, f = (cfg.d_model, cfg.num_kv_heads, cfg.resolved_head_dim,
+                    cfg.d_ff)
+    w = {"norm1": torch.ones(d)}
+    if spec.mixer in ("attn", "attn_window"):
+        h, hp = cfg.num_heads, attention.padded_heads(cfg.num_heads)
+        w.update(wq=_draw(g, (d, hp, hd))[:, :h],
+                 wk=_draw(g, (d, kv, hd)), wv=_draw(g, (d, kv, hd)),
+                 wo=_draw(g, (hp, hd, d))[:h])
+    else:
+        w["mixer"] = _draw_mixer(cfg, spec.mixer, g)
+    if spec.ffn != "none":
+        w["norm2"] = torch.ones(d)
+    if spec.ffn == "moe":
+        w["moe"] = _draw_moe(cfg, g)
+    elif spec.ffn == "dense":
+        w.update(wg=_draw(g, (d, f)), wu=_draw(g, (d, f)),
+                 ffn_wo=_draw(g, (f, d)))
+    return w
+
+
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device: Device = None) -> Transformer:
     """Random weights with the JAX package's distributions, drawn from
     ``generator`` (a CPU generator seeded 0 if None) on the generator's
     device, then cast to the compute type on ``device`` (the card
-    unless the caller asks for the CPU). The padded query heads' and
-    experts' weights are drawn and dropped, so each weight has the JAX
-    package's scale and the real experts their own draws."""
+    unless the caller asks for the CPU), one layer at a time, so that
+    the float32 draws of only one layer are held at once. The padded
+    query heads' and experts' weights are drawn and dropped, so each
+    weight has the JAX package's scale and the real experts their own
+    draws."""
     check_supported(cfg)
     device = resolve_device(device)
     g = generator if generator is not None else \
         torch.Generator().manual_seed(0)
-    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                       cfg.resolved_head_dim, cfg.d_ff)
-    hp = attention.padded_heads(h)
-    ones = torch.ones(d, dtype=torch.float32)
+    d = cfg.d_model
     weights = {"embed": _draw(g, (cfg.vocab_size, d), 1.0),
-               "final_norm": ones, "layers": []}
-    for i in range(cfg.num_layers):
-        w = {"norm1": ones, "norm2": ones,
-             "wq": _draw(g, (d, hp, hd))[:, :h],
-             "wk": _draw(g, (d, kv, hd)), "wv": _draw(g, (d, kv, hd)),
-             "wo": _draw(g, (hp, hd, d))[:h]}
-        if cfg.pattern[i % len(cfg.pattern)].ffn == "moe":
-            w["moe"] = _draw_moe(cfg, g)
-        else:
-            w.update(wg=_draw(g, (d, f)), wu=_draw(g, (d, f)),
-                     ffn_wo=_draw(g, (f, d)))
-        weights["layers"].append(w)
+               "final_norm": torch.ones(d)}
     if not cfg.tie_embeddings:
         weights["unembed"] = _draw(g, (cfg.vocab_size, d), d ** -0.5)
+    weights["layers"] = (_draw_layer(cfg, cfg.pattern[i % len(cfg.pattern)],
+                                     g) for i in range(cfg.num_layers))
     return Transformer(cfg, weights, device)
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor):
-    """tokens (B, S) -> (logits of the last position (B, 1, V), caches):
-    one ``{"k", "v"}`` per layer, (B, S, KV, D), window layers rolled
-    into ring order once S exceeds the window."""
+def prefill(model: Transformer, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None):
+    """tokens (B, S), and a frontend's prefix embeddings (B, P, d) placed
+    before them -> (logits of the last position (B, 1, V), caches): one
+    a layer, ``{"k", "v"}`` (B, P+S, KV, D) for attention (window layers
+    rolled into ring order once P+S exceeds the window), the mixer's
+    cache for a recurrent layer (``h`` and ``conv`` for Mamba, ``state``
+    and ``conv`` for mLSTM, ``state`` for sLSTM)."""
     x = model._embed(tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     caches = []
     for block in model.blocks:
@@ -232,8 +332,9 @@ def prefill(model: Transformer, tokens: torch.Tensor):
 def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
                 pos: torch.Tensor):
     """tokens (B, 1); pos (B,) absolute positions (slots may be at
-    different depths). Each layer's ring cache gets the new k, v at row
-    ``pos % S``, in place; returns (logits (B, 1, V), caches)."""
+    different depths). Each attention layer's ring cache gets the new k,
+    v at row ``pos % S``, each recurrent layer's cache its new state, in
+    place; returns (logits (B, 1, V), caches)."""
     pos = pos.to(device=model.device, dtype=torch.int32).reshape(-1)
     x = model._embed(tokens)
     for block, cache in zip(model.blocks, caches):
@@ -243,12 +344,30 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 device: Device = None) -> Caches:
-    """Zeroed decode caches, one ``{"k", "v"}`` per layer."""
+    """Zeroed decode caches, one a layer (``prefill``'s leaves at
+    ``batch`` rows; attention's k, v at ``cache_len`` ring rows, or the
+    window's), recurrent states at their initial values."""
     check_supported(cfg)
     device = resolve_device(device)
     cdt = torch_dtype(cfg.compute_dtype)
-    return [attention.init_cache(batch, cache_len, cfg.num_kv_heads,
-                                 cfg.resolved_head_dim,
-                                 cfg.pattern[i % len(cfg.pattern)].window,
-                                 cdt, device)
-            for i in range(cfg.num_layers)]
+    d, H = cfg.d_model, cfg.num_heads
+    out = []
+    for i in range(cfg.num_layers):
+        spec = cfg.pattern[i % len(cfg.pattern)]
+        if spec.mixer == "mamba":
+            c = ssm.init_mamba_cache(batch, d, d_state=cfg.mamba_d_state,
+                                     d_conv=cfg.mamba_d_conv,
+                                     expand=cfg.mamba_expand, dtype=cdt,
+                                     device=device)
+        elif spec.mixer == "mlstm":
+            c = xlstm.init_mlstm_cache(batch, d, n_heads=H,
+                                       expand=cfg.mlstm_expand, dtype=cdt,
+                                       device=device)
+        elif spec.mixer == "slstm":
+            c = xlstm.init_slstm_cache(batch, d, n_heads=H, device=device)
+        else:
+            c = attention.init_cache(batch, cache_len, cfg.num_kv_heads,
+                                     cfg.resolved_head_dim, spec.window,
+                                     cdt, device)
+        out.append(c)
+    return out

@@ -3,9 +3,11 @@
 Ported from ``repro/serving/engine.py``. The engine owns ``slots``
 concurrent sequences: new requests claim free slots, prefill runs per
 request, each decode tick advances every slot at once, and a finished
-sequence frees its slot at once for a waiting request. On the card every
-norm, prefill attention, decode attention and MoE expert product of the
-model runs a hand-written CUDA kernel (``kernels/csrc``).
+sequence frees its slot at once for a waiting request. Each slot's cache
+holds every layer's state: attention's k, v ring and the recurrent
+mixers' states and conv tails. On the card every norm, prefill
+attention, decode attention and MoE expert product of the model runs a
+hand-written CUDA kernel (``kernels/csrc``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,16 @@ import torch
 
 from repro_torch.kernels.ops import Device, resolve_device
 from repro_torch.models import transformer
+
+
+def _leaves(cache: Dict) -> List[torch.Tensor]:
+    """A layer's cache tensors in a fixed order (a state tuple's in
+    order)."""
+    out = []
+    for name in sorted(cache):
+        t = cache[name]
+        out.extend(t if isinstance(t, tuple) else (t,))
+    return out
 
 
 @dataclasses.dataclass
@@ -75,6 +87,7 @@ class ServeEngine:
             raise ValueError(
                 f"prompt length {len(prompt)} must leave KV-ring room "
                 f"(cache_len={self.cache_len}) for generation")
+        transformer.check_prompt_length(self.cfg, len(prompt))
         if rid is None:
             rid = self._next_rid
             self._next_rid += 1
@@ -112,20 +125,26 @@ class ServeEngine:
                     self.active[slot] = req
 
     def _prefill_into(self, slot: int, req: Request) -> None:
-        """Per-request prefill. Writes the prompt's k, v straight into
-        ``slot``'s rows of the engine's cache, in place: ring rows
-        [0, S) hold the prompt (rolled into ring order when S exceeds a
-        window) and the rest are zeroed, which decode masks by position.
-        Then samples the request's first token from the prefill logits
-        (ticks feed out[-1] and never re-process the last prompt token)."""
+        """Per-request prefill. Writes the prompt's cache into ``slot``'s
+        rows of the engine's cache, in place, leaf by leaf, as the JAX
+        engine's ``splice`` does: a leaf whose rows (its first axis after
+        the slot) match is copied whole (recurrent states); otherwise its
+        last rows go first and the rest are zeroed. So attention's ring
+        rows [0, S) hold the prompt (rolled into ring order when S
+        exceeds a window) and the rest are zeroed, which decode masks by
+        position; and a conv tail of a prompt under K-1 tokens keeps its
+        rows at the front, zeros after them (F6 in ROADMAP.md: the JAX
+        engine's rule, kept for parity). Then samples the request's first
+        token from the prefill logits (ticks feed out[-1] and never
+        re-process the last prompt token)."""
         S = len(req.prompt)
         toks = torch.as_tensor(req.prompt[None, :].astype(np.int64),
                                device=self.model.device)
         logits, caches = transformer.prefill(self.model, toks)
         for engine_c, new_c in zip(self.caches, caches):
-            for name in ("k", "v"):
-                tgt = engine_c[name][slot]
-                src = new_c[name][0, -tgt.shape[0]:]
+            for tgt, src in zip(_leaves(engine_c), _leaves(new_c)):
+                tgt = tgt[slot]
+                src = src[0, -tgt.shape[0]:]
                 tgt[:src.shape[0]].copy_(src)
                 tgt[src.shape[0]:].zero_()
         # submit() guarantees S < cache_len; the clamp keeps the ring

@@ -439,7 +439,11 @@ def test_decode_attention_slot_does_not_depend_on_the_batch(
     (3, 1, 40, 24),                              # K tail, ragged F
     (4, 70, 512, 520),                           # F 8 into a 128-wide tile
 ] + [(40, C, d, f) for C in (1, 63, 64, 65)      # around a warpgroup's rows
-     for d, f in ((1536, 512), (512, 1536))])
+     for d, f in ((1536, 512), (512, 1536))] +
+    # jamba-v0.1-52b: 16 experts, an 8-slot tick's and a 2048-token
+    # prompt's capacity, the gate/up and the down products
+    [(16, C, d, f) for C in (8, 320)
+     for d, f in ((4096, 14336), (14336, 4096))])
 def test_moe_gmm_kernel_matches_plain_version(cuda, name, E, C, d, f):
     dtype = LM_DTYPES[name][0]
     tol = 1e-4 if name == "float32" else 5e-2
@@ -627,3 +631,82 @@ def test_fleet_equals_standalone_on_the_card(cuda):
     assert sched.stats["dispatches"] < solo_calls
     assert rt.super_calls > 0
     assert cs.conv_scorer.grouped_launches > grouped
+
+
+# -- the recurrent blocks -----------------------------------------------------
+
+@pytest.mark.parametrize("mixer,d,L", [("mamba", 256, 1024),
+                                       ("mlstm", 256, 512),
+                                       ("slstm", 256, 64)])
+def test_recurrent_block_on_the_card_matches_the_cpu(cuda, mixer, d, L):
+    """A Mamba (two 512-token chunks), mLSTM (two 256-token chunks) and
+    sLSTM block, float32, the same weights on the card and on the CPU:
+    the prefill's output and cache, then four decode steps, within 1e-4
+    (cuBLAS and the host's BLAS sum in other orders)."""
+    cfg = get_smoke_config("xlstm-125m" if mixer != "mamba" else
+                           "jamba-v0.1-52b").scaled(d_model=d, num_heads=4)
+    w = tf._draw_mixer(cfg, mixer, torch.Generator().manual_seed(0))
+    cpu = tf.recurrent_mixer(cfg, mixer, w)
+    card = tf.recurrent_mixer(cfg, mixer, w).to(cuda)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, L, d)).astype(np.float32))
+
+    def close(a, b):
+        for u, v in zip(_leaves(a), _leaves(b)):
+            assert_allclose(u.cpu().numpy(), v.numpy(), rtol=1e-4, atol=1e-4)
+
+    got, cache = card(x.to(cuda))
+    want, want_cache = cpu(x)
+    close(got, want)
+    close(cache, want_cache)
+    for t in range(4):
+        xt = torch.from_numpy(rng.standard_normal((2, 1, d)).astype(
+            np.float32))
+        got, cache = card.decode(xt.to(cuda), cache)
+        want, want_cache = cpu.decode(xt, want_cache)
+        close(got, want)
+        close(cache, want_cache)
+
+
+def _leaves(tree):
+    """The tensors of a tensor, tuple or cache dict, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in _leaves(x)]
+    return [tree]
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m"])
+def test_engine_splices_the_recurrent_state_on_the_card(cuda, arch):
+    """On the card, a reused slot's every cache leaf after prefill is the
+    request's own prefill alone (a conv tail under 3 rows padded at the
+    end, F6), and the greedy tokens are the CPU plain path's; jamba's
+    forwards run rmsnorm, flash and decode attention and moe_gmm."""
+    cfg = get_smoke_config(arch).scaled(remat=False)
+    model = tf.init_model(cfg, torch.Generator().manual_seed(0))
+    counts = (rms.rmsnorm.launches, gmm.moe_gmm.launches)
+    prompts = [(np.arange(9) % cfg.vocab_size, 3),
+               (np.arange(4) % cfg.vocab_size, 1), (np.array([3, 1]), 4)]
+    eng = ServeEngine(model, slots=2, cache_len=64)
+    for p, n in prompts:
+        eng.submit(p, n)
+    eng._admit({})
+    eng._tick({})
+    eng._admit({})                  # the 2-token prompt takes slot 1
+    _, alone = tf.prefill(model, torch.tensor([[3, 1]], device=cuda))
+    for c, a in zip(eng.caches, alone):
+        for got, want in zip(_leaves(c), _leaves(a)):
+            n = want.shape[1]
+            assert torch.equal(got[1, :n], want[0])
+            assert not got[1, n:].any()
+    eng.run()
+    cpu = tf.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng_cpu = ServeEngine(cpu, slots=2, cache_len=64, device="cpu")
+    for p, n in prompts:
+        eng_cpu.submit(p, n)
+    eng_cpu.run()
+    assert {r: q.out for r, q in eng.requests.items()} == \
+        {r: q.out for r, q in eng_cpu.requests.items()}
+    assert rms.rmsnorm.launches > counts[0]
+    assert (gmm.moe_gmm.launches > counts[1]) == (cfg.num_experts > 0)

@@ -19,8 +19,8 @@ from numpy.testing import assert_allclose  # noqa: E402
 
 from repro.configs import base as jax_configs  # noqa: E402
 from repro.models import layers as jlayers, transformer as jtf  # noqa: E402
-from repro_torch.configs.base import get_config, get_smoke_config  # noqa: E402
-from repro_torch.models import layers, transformer as tf  # noqa: E402
+from repro_torch.configs.base import BlockSpec, get_config, get_smoke_config  # noqa: E402
+from repro_torch.models import layers, ssm, transformer as tf, xlstm  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -139,8 +139,19 @@ def test_init_model_draws_the_jax_scales():
 
 
 def test_blocks_of_later_slices_raise():
-    """MoE blocks are ported (``tests/test_torch_moe.py``); Jamba's
-    ``mamba`` and xLSTM's ``mlstm`` / ``slstm`` blocks still raise."""
-    for arch, part in (("xlstm-125m", "mlstm"), ("jamba-v0.1-52b", "mamba")):
-        with pytest.raises(NotImplementedError, match=f"'{part}'.*ROADMAP"):
-            tf.init_model(get_smoke_config(arch), device="cpu")
+    """The blocks of the later slices are ported: Jamba's ``mamba`` and
+    xLSTM's ``mlstm`` / ``slstm`` configs build (``ffn == "none"`` blocks
+    without a ``norm2``); a mixer or FFN the zoo does not have still
+    raises ``ValueError``."""
+    for arch, forward in (("xlstm-125m", xlstm.mlstm_forward),
+                          ("jamba-v0.1-52b", ssm.mamba_forward)):
+        cfg = get_smoke_config(arch)
+        model = tf.init_model(cfg, device="cpu")
+        assert len(model.blocks) == cfg.num_layers
+        assert model.blocks[0].mixer.fns[0] is forward
+        assert (model.blocks[0].norm2 is None) == \
+            (cfg.pattern[0].ffn == "none")
+    cfg = get_smoke_config(ARCH)
+    for spec in (BlockSpec(mixer="rwkv"), BlockSpec(ffn="glu")):
+        with pytest.raises(ValueError, match="unknown block"):
+            tf.init_model(cfg.scaled(pattern=(spec,)), device="cpu")
