@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from the sources in this checkout,
+Builds the port's seven CUDA kernel sources from this checkout,
 all at once, prints each kernel's registers, spills and shared memory,
 and counts the tensor-core instructions in the SASS of the three whose
 bfloat16 path runs on them (HGMMA in grouped expert matmul and flash
@@ -38,7 +38,16 @@ kernel path against plain path;
 and the attention and norm kernels at
 the head shapes and widths of the other accepted zoo configs
 (gemma3-12b's head dim 256, llama4-maverick-400b-a17b's 5 and
-granite-20b's 48 query heads per kv head, granite-20b's 6144 wide norm). It prints the results, the card's own
+granite-20b's 48 query heads per kv head, granite-20b's 6144 wide norm).
+Then training: the backward kernels (rmsnorm's, flash attention's dQ and
+dK/dV, moe_gmm's dx and dw on its own kernel) against their plain
+versions at granite-moe-3b-a800m's training shapes and h2o-danube-1.8b's
+head dim 80 over 4096 tokens, each timed beside its plain version and the
+library's backward; one float32 step of 2 full-width granite layers on
+the kernel path against the plain path; granite-moe-3b-a800m at its
+published config for 10 AdamW steps of 4 x 1024 tokens through
+``repro_torch.launch.train`` (the last step traced); and xlstm-125m's
+resume through ``repro_torch.launch.train``, bit for bit. It prints the results, the card's own
 wall-clock numbers, one JSON line with every kernel, and as its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
@@ -50,14 +59,21 @@ import contextlib
 import gc
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS repeats its bits run to run only with a fixed workspace, set
+# before its first handle: the training phases and their resume need it
+# (repro_torch.launch.train sets the same when it is imported first)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -85,6 +101,8 @@ from repro_torch.kernels import scorer_head as sh  # noqa: E402
 from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train import train_step as steps  # noqa: E402
 
 # H100 SXM data sheet: fp32 outside the tensor cores, bf16 dense on the
 # tensor cores, and HBM3 bandwidth
@@ -98,7 +116,7 @@ FAMILY = [(2, 8, 16, 25), (3, 16, 32, 50), (4, 16, 32, 50), (5, 32, 64, 100)]
 MAIN_OP = (5, 32, 64, 100)   # the full-width operator the query ships
 HOURS = 6.0                  # the corpus's default scene length
 KERNELS = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention",
-           "moe_gmm", "scorer_head")
+           "moe_gmm", "scorer_head", "flash_attention_bwd")
 LM_ARCH = "h2o-danube-1.8b"  # examples/serve_lm.py's default model
 MOE_ARCH = "granite-moe-3b-a800m"   # ROADMAP's MoE configuration
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
@@ -165,6 +183,17 @@ RECURRENT_LONG = (512, 1024, 2048)
 # the mixers alone: a prompt's prefill and an 8-slot decode step
 SCAN_TOKENS, SCAN_SLOTS = 2048, 8
 HYBRID_LABEL = "C=320 4096->14336 bfloat16"   # jamba's row in the kernels line
+# training (granite-moe-3b-a800m at batch 4 x 1024 tokens): the backward
+# kernels at its shapes (rmsnorm over 4096 rows of 1536; flash over 4 x
+# 1024 tokens of 24/8 heads of 64; moe_gmm's dx and dw at 40 experts of
+# capacity 1024, 1536 <-> 512), and h2o-danube-1.8b's head dim 80 with its
+# 4096 window over one 4096-token row
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # relative to max
+TRAIN_ARCH = MOE_ARCH
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
+TRAIN_GRAD_TOL = 1e-3        # float32 parity of every gradient, relative
+RESUME_ARCH = XLSTM_ARCH
+RESUME_BATCH, RESUME_SEQ, RESUME_STEPS = 4, 256, 8
 # the stacked superbatch: members of a grouped launch checked against the
 # ungrouped kernel (the fleet's group_max is 8), images a member in the
 # check, the head's row counts (the small layer's 20 real rows, the
@@ -1730,6 +1759,375 @@ def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
     return out
 
 
+# -- phase 9: training: the backward kernels, parity, steps, resume --------
+
+
+def train_launches():
+    """Forward and backward launches of the training path's kernels."""
+    return {"rmsnorm": rms.rmsnorm.launches,
+            "rmsnorm_bwd": rms.rmsnorm_bwd.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
+            "moe_gmm": gmm.moe_gmm.launches,
+            "moe_gmm_bwd": gmm.moe_gmm_bwd.launches}
+
+
+def zero_train_launches():
+    for f in (rms.rmsnorm, rms.rmsnorm_bwd, fa.flash_attention,
+              fa.flash_attention_bwd, gmm.moe_gmm, gmm.moe_gmm_bwd):
+        f.launches = 0
+
+
+def _rel_err(got, want) -> float:
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    return max(float((a.float() - b.float()).abs().max()) /
+               max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def _library_grad(fn, inputs, dout):
+    """One autograd call of a PyTorch library forward (the yardstick):
+    its graph built once, its backward timed."""
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ins)
+    return lambda: torch.autograd.grad(out, ins, dout, retain_graph=True)
+
+
+def bwd_kernel_phase(device) -> dict:
+    """Each backward kernel against its plain version at the training
+    shapes (``ref.rmsnorm_bwd``, ``ref.attention_bwd``,
+    ``ref.moe_gmm_bwd``), float32 within ``BWD_TOL`` and bfloat16 within
+    2e-2 relative to the largest entry, a second launch bit for bit the
+    first (no atomics), timed beside the plain version and the library's
+    backward (``F.rms_norm``'s, SDPA's, ``torch.bmm``'s, by one
+    ``torch.autograd.grad`` call)."""
+    cfg = get_config(TRAIN_ARCH)
+    d, H, KV, D = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.resolved_head_dim)
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        size, name = (2 if dt == torch.bfloat16 else 4), str(dt)[6:]
+        R = TRAIN_BATCH * TRAIN_SEQ
+        x = _randn((R, d), dt, device, 1) * 3
+        scale = 1 + 0.1 * _randn((d,), torch.float32, device, 2)
+        dy = _randn((R, d), dt, device, 3)
+        got = rms.rmsnorm_bwd(x, scale, dy)
+        err = _rel_err(got, ref.rmsnorm_bwd(x, scale, dy))
+        again = rms.rmsnorm_bwd(x, scale, dy)
+        check(err <= BWD_TOL[dt] and all(torch.equal(a, b) for a, b in
+                                         zip(got, again)),
+              f"rmsnorm_bwd {R}x{d} {dt}: rel err {err}, bits repeat "
+              f"{[torch.equal(a, b) for a, b in zip(got, again)]}")
+        t = _in_turns(lambda: rms.rmsnorm_bwd(x, scale, dy),
+                      lambda: ref.rmsnorm_bwd(x, scale, dy),
+                      _library_grad(lambda a, w: F.rms_norm(a, (d,), w, 1e-6),
+                                    (x, scale.to(dt)), dy), iters=20)
+        bound, by = _bound(10.0 * R * d, 3 * R * d * size + 8 * d, dt)
+        label = f"{R}x{d} {name}"
+        rows[("rmsnorm_bwd", label)] = _row("rmsnorm_bwd", label, err, t,
+                                            bound, by)
+        del x, dy, got, again
+        for B, S, h, kv, hd, W in ((TRAIN_BATCH, TRAIN_SEQ, H, KV, D, None),
+                                   (1, 4096, 32, 8, 80, 4096)):
+            q = _randn((B, S, h, hd), dt, device, 4)
+            k = _randn((B, S, kv, hd), dt, device, 5)
+            v = _randn((B, S, kv, hd), dt, device, 6)
+            do = _randn((B, S, h, hd), dt, device, 7)
+            out, lse = fa._forward(q, k, v, True, W, 0, True)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, window=W)
+            want = ref.attention_bwd(q, k, v, out, do, window=W)
+            err = _rel_err(got, want)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, window=W)
+            check(err <= BWD_TOL[dt] and all(torch.equal(a, b) for a, b in
+                                             zip(got, again)),
+                  f"flash_attention_bwd B={B} S={S} {h}/{kv}x{hd} {dt}: "
+                  f"rel err {err}")
+            del got, want, again
+            torch.cuda.empty_cache()
+            g = h // kv
+
+            def sdpa(a, b, c, W=W):
+                a, b, c = (t.transpose(1, 2) for t in (
+                    a, b.repeat_interleave(g, 2), c.repeat_interleave(g, 2)))
+                if W is None or S <= W:
+                    o = F.scaled_dot_product_attention(a, b, c,
+                                                       is_causal=True)
+                else:
+                    o = F.scaled_dot_product_attention(
+                        a, b, c, attn_mask=ref.keep_mask(S, S, True, W, 0,
+                                                         device))
+                return o.transpose(1, 2)
+
+            t = _in_turns(
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                               window=W),
+                lambda: ref.attention_bwd(q, k, v, out, do, window=W),
+                _library_grad(sdpa, (q, k, v), do), iters=3)
+            pairs = B * _kept_pairs(S, S, W)
+            bound, by = _bound(10.0 * hd * h * pairs,
+                               (4 * q.numel() + 4 * k.numel()) * size +
+                               4 * B * h * S, dt)
+            label = f"B={B} S={S} {h}/{kv}x{hd}" + \
+                (f" window {W}" if W else "") + f" {name}"
+            rows[("flash_attention_bwd", label)] = _row(
+                "flash_attention_bwd", label, err, t, bound, by)
+            del q, k, v, do, out, lse
+            torch.cuda.empty_cache()
+        E, C, f = cfg.num_experts, TRAIN_BATCH * TRAIN_SEQ * cfg.top_k * \
+            cfg.capacity_factor // cfg.num_experts, cfg.resolved_d_ff_expert
+        C = max(8, int(C))
+        for a, b in ((d, f), (f, d)):
+            x = _randn((E, C, a), dt, device, 8)
+            w = (_randn((E, a, b), torch.float32, device, 9) / a ** 0.5).to(dt)
+            dy = _randn((E, C, b), dt, device, 10)
+            got = gmm.moe_gmm_bwd(x, w, dy)
+            err = _rel_err(got, ref.moe_gmm_bwd(x, w, dy))
+            again = gmm.moe_gmm_bwd(x, w, dy)
+            check(err <= BWD_TOL[dt] and all(torch.equal(p, r) for p, r in
+                                             zip(got, again)),
+                  f"moe_gmm_bwd E={E} C={C} {a}->{b} {dt}: rel err {err}")
+            t = _in_turns(lambda: gmm.moe_gmm_bwd(x, w, dy),
+                          lambda: ref.moe_gmm_bwd(x, w, dy),
+                          _library_grad(torch.bmm, (x, w), dy), iters=10)
+            # x, w and dy read once, dx and dw written once
+            bound, by = _bound(4.0 * E * C * a * b,
+                               (2 * x.numel() + 2 * w.numel() + dy.numel())
+                               * size, dt)
+            label = f"E={E} C={C} {a}->{b} {name}"
+            rows[("moe_gmm_bwd", label)] = _row("moe_gmm_bwd", label, err, t,
+                                                bound, by)
+            del x, w, dy, got, again
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _loss_and_grads(model, batch):
+    for p in model.parameters():
+        p.grad = None
+    loss = tf.train_loss(model, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def train_parity_phase(device) -> dict:
+    """granite-moe-3b-a800m at full width cut to 2 layers, float32 (the
+    parameters and the compute), wq and wk at their true fan-in (F3), one
+    batch of 4 x 1024 tokens: the loss, the global gradient norm and every
+    gradient of the kernel path (the forward kernels and their backward
+    kernels) against the plain path (autograd of the plain forwards). At
+    most ``ROUTE_LIMIT`` of the top-8 routes may differ (F4); the loss
+    within 1e-4, the norm and each gradient within ``TRAIN_GRAD_TOL`` of
+    the plain path relative to its largest entry."""
+    cfg = served_config(TRAIN_ARCH, num_layers=2, compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model = tf.init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                          device, trainable=True)
+    unit_scores(model)
+    rng = np.random.default_rng(0)
+    batch = steps.to_batch({
+        "tokens": rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)),
+        "labels": rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))},
+        device)
+    runs = {}
+    for path in ("kernel", "plain"):
+        ctx = plain_lm_path() if path == "plain" else contextlib.nullcontext()
+        log, label = [], [("prefill", 0)]
+        zero_train_launches()
+        with ctx, recorded_routes(log, label), steps.deterministic():
+            loss, grads = _loss_and_grads(model, batch)
+        runs[path] = (loss, grads, log, train_launches())
+    (lk, gk, rk, nk), (lp, gp, rp, np_) = runs["kernel"], runs["plain"]
+    check(all(nk[k] for k in nk) and not any(np_.values()),
+          f"launches: kernel path {nk}, plain path {np_}")
+    diff, total = route_diffs(rk, rp, 1)
+    share = sum(diff) / max(sum(total), 1)
+    norms = [float(opt.global_norm(g)) for g in (gk, gp)]
+    errs = {n: _rel_err(gk[n], gp[n]) for n in gk}
+    worst = max(errs, key=errs.get)
+    out = {"loss": float(lk), "loss_plain": float(lp),
+           "dloss": abs(float(lk) - float(lp)), "grad_norm": norms[0],
+           "grad_norm_plain": norms[1], "max_rel_grad_err": errs[worst],
+           "worst_grad": worst, "routes_compared": sum(total),
+           "routes_differing": sum(diff), "launches": nk,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"train parity {TRAIN_ARCH} float32 (2 of 32 layers, d"
+          f"{cfg.d_model}, batch {TRAIN_BATCH}x{TRAIN_SEQ}): loss "
+          f"{out['loss']:.6f} vs plain {out['loss_plain']:.6f}; grad norm "
+          f"{norms[0]:.6f} vs {norms[1]:.6f}; worst gradient {worst} rel "
+          f"err {errs[worst]:.3e} over {len(errs)} tensors; top-"
+          f"{cfg.top_k} sets differing {sum(diff)} of {sum(total)}; "
+          f"kernel launches {nk}; peak {out['peak_mem_gb']:.2f} GB")
+    check(share <= ROUTE_LIMIT, f"{share:.2e} of the routes differ")
+    check(out["dloss"] <= 1e-4, f"loss differs by {out['dloss']}")
+    check(abs(norms[0] - norms[1]) <= TRAIN_GRAD_TOL * norms[1],
+          f"grad norms {norms}")
+    check(errs[worst] <= TRAIN_GRAD_TOL, f"gradient {worst}: {errs[worst]}")
+    del model, runs, gk, gp
+    free_memory()
+    return out
+
+
+def train_phase(device) -> dict:
+    """granite-moe-3b-a800m at its published config (32 layers, float32
+    parameters, bf16 compute, remat), ``TRAIN_STEPS`` AdamW steps at batch
+    4 x 1024 through ``repro_torch.launch.train``: a finite loss at every
+    step, ms a step and tokens/s, peak memory, each kernel's forward and
+    backward launches (every one launched), and the last step traced for
+    the card's busy share and its largest device operations."""
+    from repro_torch.launch import train as launch_train
+    traced = {}
+
+    @contextlib.contextmanager
+    def trace_last(step):
+        if step != TRAIN_STEPS - 1:
+            yield
+            return
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof:
+            yield
+            torch.cuda.synchronize()
+            traced["wall_s"] = time.perf_counter() - t0
+        traced["prof"] = prof
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_launches()
+    t0 = time.perf_counter()
+    run = launch_train.run(
+        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"],
+        wrap_step=trace_last)
+    wall = time.perf_counter() - t0
+    launches = train_launches()
+    losses, step_s = run["losses"], run["step_s"]
+    check(run["steps"] == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    check(all(launches.values()), f"a training kernel never ran: {launches}")
+    untraced = step_s[1:-1]          # the first step warms up, the last traced
+    busy = device_busy(traced["prof"], (
+        ("rmsnorm", "rmsnorm_rows"), ("rmsnorm_bwd", "rmsnorm_bwd"),
+        ("flash_attention", "flash_fwd"), ("flash_attention_bwd",
+                                           "flash_bwd"),
+        ("moe_gmm", "gmm_")))
+    out = {"steps": run["steps"], "losses": losses, "step_s": step_s,
+           "ms_per_step": 1e3 * float(np.median(untraced)),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.median(
+               untraced)), "wall_s": wall, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "traced_step_s": traced["wall_s"], **busy}
+    if "device_busy_s" in busy:
+        out["busy_share"] = busy["device_busy_s"] / traced["wall_s"]
+    print(f"train {TRAIN_ARCH} (32L d1536, float32 parameters, bf16 compute, "
+          f"remat; batch {TRAIN_BATCH}x{TRAIN_SEQ}): losses " +
+          " ".join(f"{x:.4f}" for x in losses) +
+          f"; {out['ms_per_step']:.1f} ms a step (median of steps 2-"
+          f"{TRAIN_STEPS - 1}), {out['tokens_per_s']:.1f} tokens/s; peak "
+          f"memory {out['peak_mem_gb']:.2f} GB; launches {launches}; "
+          f"traced step {traced['wall_s']:.3f} s, busy " +
+          (f"{out['busy_share']:.4f}" if "busy_share" in out else
+           "not measured") +
+          f"; top device operations {busy.get('top_kernels')}")
+    del run, traced
+    free_memory()
+    return out
+
+
+def resume_phase(device) -> dict:
+    """xlstm-125m whole through ``repro_torch.launch.train`` with a
+    checkpoint directory: ``RESUME_STEPS`` steps straight; then the same
+    run preempted by SIGTERM after half of them (it checkpoints and
+    exits), and ``--resume auto`` for the rest in a new process, as a
+    preempted job restarts. Every saved parameter and optimizer moment of
+    the two final checkpoints is bit for bit the same."""
+    from repro_torch.launch import train as launch_train
+    args = ["--arch", RESUME_ARCH, "--steps", str(RESUME_STEPS), "--batch",
+            str(RESUME_BATCH), "--seq", str(RESUME_SEQ), "--ckpt-every",
+            "1000", "--log-every", "1000"]
+    half = RESUME_STEPS // 2
+
+    @contextlib.contextmanager
+    def preempt(step):
+        yield
+        if step == half - 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def final(path):
+        root = Path(path) / (Path(path) / "LATEST").read_text()
+        manifest = json.loads((root / "manifest.json").read_text())
+        return manifest, {k: np.load(root / v["file"])
+                          for k, v in manifest["leaves"].items()}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        straight = launch_train.run(args + ["--ckpt", a])
+        first = launch_train.run(args + ["--ckpt", b], wrap_step=preempt)
+        second = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *args,
+             "--ckpt", b, "--resume", "auto"], capture_output=True,
+            text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        (ma, la), (mb, lb) = final(a), final(b)
+        same = sorted(k for k in la if np.array_equal(la[k], lb.get(k)))
+    check(second.returncode == 0 and
+          f"resumed at step {half}" in second.stdout,
+          f"the resumed process: rc {second.returncode}, "
+          f"{second.stdout[-500:]} {second.stderr[-2000:]}")
+    check(first["stopped"] and first["steps"] == half,
+          f"preempted after {first['steps']} steps")
+    check(set(la) == set(lb) and len(same) == len(la),
+          f"{len(la) - len(same)} of {len(la)} saved leaves differ")
+    check(first["losses"] == straight["losses"][:half],
+          "the preempted run's losses differ")
+    out = {"leaves": len(la), "identical": len(same),
+           "losses": straight["losses"], "wall_s": time.perf_counter() - t0,
+           "step_s": straight["step_s"]}
+    print(f"resume {RESUME_ARCH} (12L d768, batch {RESUME_BATCH}x"
+          f"{RESUME_SEQ}): {RESUME_STEPS} steps straight against {half} "
+          f"steps, SIGTERM, and --resume auto for {half} in a new process: "
+          f"{len(same)} of {len(la)} saved leaves (parameters, moments, "
+          f"step) bit for bit; losses " +
+          " ".join(f"{x:.4f}" for x in straight["losses"]) +
+          f"; {1e3 * float(np.median(straight['step_s'][1:])):.1f} ms a "
+          f"step; {out['wall_s']:.1f} s for the three runs")
+    free_memory()
+    return out
+
+
+BWD_LINES = (   # (name, source, the forward it differentiates, label)
+    ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:38",
+     "4096x1536 bfloat16"),
+    ("flash_attention_bwd", "flash_attention_bwd.cu",
+     "src/repro/kernels/flash_attention.py:118",
+     "B=4 S=1024 24/8x64 bfloat16"),
+    ("moe_gmm_bwd", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:50",
+     "C=1024 1536->512 bfloat16"))
+
+
+def bwd_line(name, source, forward, label, rows, launches) -> dict:
+    """A backward kernel's entry of the ``kernels`` line, as ``lm_line``:
+    its row at ``label`` (granite's training shape, bf16), the largest
+    error over its rows, its launches in the training phase. It replaces
+    no Pallas kernel: the JAX package has no backward kernel and trains
+    through XLA's derivative of the forward's function."""
+    mine = {lab: r for (n, lab), r in rows.items() if n == name}
+    row = next(r for lab, r in mine.items() if lab.endswith(label))
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"none (XLA's derivative of the function of "
+                        f"{forward})", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+
+
 LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:38",
                "flash_attention": "src/repro/kernels/flash_attention.py:118",
                "decode_attention": "src/repro/kernels/decode_attention.py:71",
@@ -1837,6 +2235,14 @@ def main() -> int:
         lm_rows.update(lm_kernel_phase(
             device, arch, WIDE_RMS_SHAPES if arch == WIDE_RMS_ARCH else (),
             ()))
+    # training: the backward kernels at granite-moe-3b-a800m's training
+    # shapes, one float32 step of 2 full-width layers on the kernel path
+    # against the plain path, the published config for TRAIN_STEPS steps
+    # through launch.train (the last traced), and xlstm-125m's resume
+    bwd_rows = bwd_kernel_phase(device)
+    train_parity_phase(device)
+    training = train_phase(device)
+    resume_phase(device)
     # the kernel's line: one 1024-frame chunk of the full-width operator,
     # its five conv layers (the main path's largest dispatch); the bound
     # is the larger of their summed bytes and summed operations' times
@@ -1865,12 +2271,16 @@ def main() -> int:
         "grouped": {k: grouped["conv_scorer"][k] for k in (
             "members", "ms", "bound_ms", "library_ms")} | {
             "launches": fleet["fleet_launches"]["conv_scorer_grouped"]},
-    }] + [lm_line(name, lm_rows, serve["launches"][name], label)
+    }] + [lm_line(name, lm_rows, serve["launches"][name], label) |
+          ({"train_launches": training["launches"][name]}
+           if name in training["launches"] else {})
           for name, label in (("rmsnorm", "2048x2560 bfloat16"),
                               ("flash_attention", "B=1 S=2048 bfloat16"),
                               ("decode_attention", "bfloat16"))] +
         [lm_line("moe_gmm", granite_rows, moe_serve["launches"]["moe_gmm"],
-                 "C=512 1536->512 bfloat16") | {"jamba": {
+                 "C=512 1536->512 bfloat16") | {
+                     "train_launches": training["launches"]["moe_gmm"],
+                     "jamba": {
                      "shape": f"E=16 {HYBRID_LABEL}",
                      **lm_line("moe_gmm", hybrid_rows,
                                hybrid_serve["launches"]["moe_gmm"],
@@ -1882,7 +2292,10 @@ def main() -> int:
         "launches": query["scorer_head_launches"], **head_row,
         "grouped": {k: grouped["scorer_head"][k] for k in (
             "members", "ms", "bound_ms")} | {
-            "launches": fleet["fleet_launches"]["scorer_head_grouped"]}}]}))
+            "launches": fleet["fleet_launches"]["scorer_head_grouped"]}}] +
+        [bwd_line(name, src, fwd, label, bwd_rows,
+                  training["launches"][name])
+         for name, src, fwd, label in BWD_LINES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -106,9 +106,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, float* tile
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-              int H, int KV, int causal, int window, int q_offset,
-              float scale) {
+              const T* __restrict__ v, T* __restrict__ out,
+              float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+              int causal, int window, int q_offset, float scale) {
   constexpr int C = D / 8;      // accumulator columns per thread
   constexpr int QS = D + 1;
   extern __shared__ float smem[];
@@ -224,6 +224,9 @@ __global__ void __launch_bounds__(kThreads)
     const float lsum = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C; ++c) o[cg + 8 * c] = from_float<T>(acc[i][c] / lsum);
+    if (lse != nullptr && cg == 0)
+      lse[((long long)b * H + h) * Sq + row] =
+          l[i] > 0.0f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
@@ -365,9 +368,9 @@ __global__ void __launch_bounds__(160)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
-                    __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
-                    int KV, int causal, int window, int q_offset,
-                    float scale_log2) {
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    int Sq, int Sk, int H, int KV, int causal, int window,
+                    int q_offset, float scale_log2) {
   using L = TcTile<D>;
   constexpr int kS = L::kStages;
   __shared__ __align__(8) uint64_t q_full, full[kS], empty[kS];
@@ -472,6 +475,13 @@ __global__ void __launch_bounds__(160)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[u] = 1.0f / fmaxf(l, 1e-30f);
+    // the row's log-sum-exp of the scaled scores, in natural units (m is
+    // in log2 units), for the backward pass; training asks for it
+    const int row = q0 + r + 8 * u;
+    if (lse != nullptr && rows.quad == 0 && row < Sq)
+      lse[((long long)b * H + h) * Sq + row] =
+          l > 0.0f ? (rows.m[u] + log2f(l)) * 0.6931471805599453f
+                   : -INFINITY;
   }
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
@@ -488,8 +498,8 @@ __global__ void __launch_bounds__(160)
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int H, int KV, int causal, int window,
-                int q_offset, float scale, cudaStream_t stream) {
+                float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+                int window, int q_offset, float scale, cudaStream_t stream) {
   using L = TcTile<D>;
   if (Sk == 0)   // no key: every row is zero, as the band loop leaves it
     return (int)cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, stream);
@@ -516,17 +526,17 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned int)((Sq + kBq - 1) / kBq), (unsigned int)H,
                   (unsigned int)B);
   flash_fwd_wgmma<D><<<grid, 160, L::kSmem, stream>>>(
-      qmap, kmap, vmap, (__nv_bfloat16*)out, Sq, Sk, H, KV, causal, window,
-      q_offset, scale * 1.4426950408889634f);
+      qmap, kmap, vmap, (__nv_bfloat16*)out, lse, Sq, Sk, H, KV, causal,
+      window, q_offset, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 // -- float32: the CUDA cores ----------------------------------------------
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int H, int KV, int causal, int window,
-               int q_offset, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+               int window, int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -537,45 +547,51 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((unsigned int)((Sq + kBq - 1) / kBq), (unsigned int)H,
                   (unsigned int)B);
   flash_fwd<float, D><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
-      H, KV, causal, window, q_offset, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, Sq,
+      Sk, H, KV, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int dtype,
-           int B, int Sq, int Sk, int H, int KV, int causal, int window,
-           int q_offset, float scale, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int dtype, int B, int Sq, int Sk, int H, int KV,
+           int causal, int window, int q_offset, float scale,
+           cudaStream_t s) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                         q_offset, scale, s);
+    return launch_f32<D>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal,
+                         window, q_offset, scale, s);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                          q_offset, scale, s);
+    return launch_bf16<D>(q, k, v, out, lse, B, Sq, Sk, H, KV, causal,
+                          window, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; window <= 0 means none. Launches on
+// dtype: 0 float32, 1 bfloat16; window <= 0 means none; lse, when not
+// null, receives each row's log-sum-exp of the scaled scores, float32
+// (B, H, Sq) in natural units (-inf for a row with no kept key): the
+// backward pass (flash_attention_bwd.cu) reads it, serving passes null.
+// Launches on
 // `stream` and returns cudaGetLastError(); 0 means launched. The caller
 // (kernels/flash_attention.py) has checked shapes (D in {16, 32, 64, 80,
 // 128, 256}, H % KV == 0), types, contiguity and 16-byte alignment, and
 // resolved q_offset.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int dtype,
+                                   const void* v, void* out, void* lse,
+                                   int dtype,
                                    int B, int Sq, int Sk, int H, int KV,
                                    int D, int causal, int window,
                                    int q_offset, float scale, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch<16>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
-    case 32: return launch<32>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
-    case 64: return launch<64>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
-    case 80: return launch<80>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
-    case 128: return launch<128>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
-    case 256: return launch<256>(q, k, v, out, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 16: return launch<16>(q, k, v, out, (float*)lse, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 32: return launch<32>(q, k, v, out, (float*)lse, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 64: return launch<64>(q, k, v, out, (float*)lse, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 80: return launch<80>(q, k, v, out, (float*)lse, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 128: return launch<128>(q, k, v, out, (float*)lse, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
+    case 256: return launch<256>(q, k, v, out, (float*)lse, dtype, B, Sq, Sk, H, KV, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

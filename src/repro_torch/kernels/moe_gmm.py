@@ -9,6 +9,16 @@ float32 accumulators) with its tiles brought by TMA, so it needs an
 ``sm_90a`` card; in float32 it runs on the CUDA cores, since the tensor
 cores would round float32 operands to TF32.
 
+Under autograd (a grad-enabled call where x or w requires grad) the call
+goes through ``MoeGmmFn``, whose backward ``moe_gmm_bwd`` runs the same
+kernel twice: ``dx = moe_gmm(dy, w^T)`` and ``dw = moe_gmm(x^T, dy)``,
+with the transposed operands made contiguous. For dw the contracted
+dimension is the capacity C, which TMA needs in whole 16-byte units, so
+x and dy get zero rows up to a multiple of 8 for that launch (zero rows
+add zeros). dw comes out in x's type, as the JAX graph's bf16 product
+does before its cast to the float32 master weight. On the CPU the
+backward is the plain ``ref.moe_gmm_bwd``.
+
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
 """
@@ -17,6 +27,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
 
@@ -29,7 +40,18 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     f) in x's type. C may be any size; on the card d and f are multiples
     of 8 (the rows of x and w are then whole 16-byte units, as TMA needs
     them). A row's result depends on neither C nor the other rows.
-    ``moe_gmm.launches`` counts the kernel's launches."""
+    ``moe_gmm.launches`` counts the kernel's launches. Differentiable
+    (``MoeGmmFn``)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return MoeGmmFn.apply(x, w)
+    out = _product(x, w)
+    if x.device.type == "cuda":
+        moe_gmm.launches += 1
+    return out
+
+
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x[e] @ w[e]: the plain version on the CPU, one launch on the card."""
     code = build.dtype_code(x, w)
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
             or w.shape[1] != x.shape[2]:
@@ -51,8 +73,45 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     build.launch(build.load("moe_gmm", SIGNATURES).moe_gmm_fwd, x.device,
                  x.data_ptr(), w.data_ptr(), out.data_ptr(), code, E, C, d,
                  f, what=f"moe_gmm at x {tuple(x.shape)}, w {tuple(w.shape)}")
-    moe_gmm.launches += 1
     return out
 
 
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """(dx in x's type, dw in w's type) of ``moe_gmm`` for the output
+    gradient dy (E, C, f): on the card two launches of the kernel,
+    counted by ``moe_gmm_bwd.launches``."""
+    if dy.shape != (x.shape[0], x.shape[1], w.shape[2]) or \
+            dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} does not fit x "
+                         f"{tuple(x.shape)} and w {tuple(w.shape)}")
+    if x.device.type == "cpu":
+        return ref.moe_gmm_bwd(x, w, dy)
+    dy = dy.contiguous()
+    dx = _product(dy, w.transpose(1, 2).contiguous())
+    pad = -x.shape[1] % 8
+    xt = F.pad(x, (0, 0, 0, pad)).transpose(1, 2).contiguous()  # (E, d, Cp)
+    dw = _product(xt, F.pad(dy, (0, 0, 0, pad)))
+    moe_gmm_bwd.launches += 2
+    return dx, dw
+
+
+class MoeGmmFn(torch.autograd.Function):
+    """The grouped expert matmul under autograd: the kernel forward, then
+    ``moe_gmm_bwd`` (x and w saved)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = _product(x, w)
+        if x.device.type == "cuda":
+            moe_gmm.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return moe_gmm_bwd(x, w, dy)
+
+
 moe_gmm.launches = 0
+moe_gmm_bwd.launches = 0

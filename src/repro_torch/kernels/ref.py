@@ -2,7 +2,11 @@
 
 Each function is the mathematical definition with no tiling or fusion:
 the CPU tests run it against the JAX package's references, and
-``chip_smoke.py`` holds each kernel against it on the card.
+``chip_smoke.py`` holds each kernel against it on the card. The
+backward passes (``rmsnorm_bwd``, ``attention_bwd``, ``moe_gmm_bwd``)
+are written as explicit formulas, not through autograd: the tests hold
+them to ``torch.autograd`` of the forward and to ``jax.vjp`` of the JAX
+package's references.
 """
 from __future__ import annotations
 
@@ -87,12 +91,42 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6):
+    """The gradients of ``rmsnorm``: with r = rsqrt(mean(x^2) + eps) per
+    row, ``dx = r (dy s) - x r^3 mean(dy s x)`` in x's type and
+    ``dscale = sum over rows of dy x r`` in float32."""
+    x32, dy32, s = x.float(), dy.float(), scale.float()
+    r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    dot = (dy32 * s * x32).mean(dim=-1, keepdim=True)
+    dx = r * (dy32 * s) - x32 * r.pow(3) * dot
+    dscale = (dy32 * x32 * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale
+
+
 def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Compact GQA (..., KV, D) -> (..., H, D): query head h reads kv
     head h // (H / KV), the model's grouping for its real heads."""
     n_kv = k.shape[-2]
     return k if n_kv == n_heads else \
         k.repeat_interleave(n_heads // n_kv, dim=-2)
+
+
+def keep_mask(sq: int, sk: int, causal: bool, window: Optional[int],
+              q_offset: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: query row i (position ``q_offset + i``; q aligned
+    to the end of k when ``q_offset`` is 0 and Sq != Sk) keeps key j iff
+    ``j <= pos`` (causal) and ``j > pos - window``."""
+    if q_offset == 0 and sq != sk:
+        q_offset = sk - sq
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    return keep
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -109,15 +143,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sequences."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    if q_offset == 0 and Sq != Sk:
-        q_offset = Sk - Sq
-    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        keep &= kpos <= qpos
-    if window is not None:
-        keep &= kpos > qpos - window
+    keep = keep_mask(Sq, Sk, causal, window, q_offset, q.device)
     g = H // KV
     outs = []
     for j in range(KV):
@@ -126,6 +152,41 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.softmax(s.masked_fill(~keep, NEG_INF), dim=-1)
         outs.append(torch.einsum("bgqs,bsd->bqgd", p, v[:, :, j].float()))
     return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, dout: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0):
+    """The gradients (dq, dk, dv) of ``attention`` at its output ``out``
+    for the output gradient ``dout``, in the inputs' types. Per kv head
+    j and its group of query heads, in float32, with s the scaled scores
+    and P their softmax over the kept keys: ``dV = P^T dO``, ``dP = dO
+    V^T``, ``Delta = rowsum(dO * out)``, ``dS = P (dP - Delta)``, ``dQ =
+    dS K / sqrt(D)``, ``dK = dS^T Q / sqrt(D)``, dK and dV summed over
+    the group's heads."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    keep = keep_mask(Sq, Sk, causal, window, q_offset, q.device)
+    g, scale = H // KV, 1.0 / D ** 0.5
+    dqs, dks, dvs = [], [], []
+    for j in range(KV):
+        heads = slice(j * g, (j + 1) * g)
+        qj, oj = q[:, :, heads].float(), out[:, :, heads].float()
+        dj = dout[:, :, heads].float()                       # (B,Sq,g,D)
+        kj, vj = k[:, :, j].float(), v[:, :, j].float()       # (B,Sk,D)
+        s = torch.einsum("bqgd,bsd->bgqs", qj, kj) * scale
+        p = torch.softmax(s.masked_fill(~keep, NEG_INF), dim=-1)
+        p = p.masked_fill(~keep, 0.0)                         # empty rows
+        dp = torch.einsum("bqgd,bsd->bgqs", dj, vj)
+        delta = (dj * oj).sum(-1).permute(0, 2, 1)[..., None]  # (B,g,Sq,1)
+        ds = p * (dp - delta)
+        dvs.append(torch.einsum("bgqs,bqgd->bsd", p, dj))
+        dks.append(torch.einsum("bgqs,bqgd->bsd", ds, qj) * scale)
+        dqs.append(torch.einsum("bgqs,bsd->bqgd", ds, kj) * scale)
+    dq = torch.cat(dqs, dim=2).to(q.dtype)
+    return (dq, torch.stack(dks, dim=2).to(k.dtype),
+            torch.stack(dvs, dim=2).to(v.dtype))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -156,3 +217,12 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped matmul: x (E, C, d) @ w (E, d, f) -> (E, C, f), in float32
     and rounded once to x's type (``repro/kernels/ref.py::moe_gmm``)."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """The gradients of ``moe_gmm``: ``dx[e] = dy[e] @ w[e]^T`` in x's
+    type and ``dw[e] = x[e]^T @ dy[e]`` in w's type, each summed in
+    float32."""
+    dx = torch.einsum("ecf,edf->ecd", dy.float(), w.float()).to(x.dtype)
+    dw = torch.einsum("ecd,ecf->edf", x.float(), dy.float()).to(w.dtype)
+    return dx, dw

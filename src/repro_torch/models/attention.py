@@ -30,34 +30,41 @@ def padded_heads(n_heads: int, tp: int = 16) -> int:
 
 
 class Attention(nn.Module):
-    """Weights in the compute type: wq (d, H*D), wk and wv (d, KV*D), wo
-    (H*D, d), in the JAX package's (d, heads, head_dim) order."""
+    """Weights wq (d, H*D), wk and wv (d, KV*D), wo (H*D, d), in the JAX
+    package's (d, heads, head_dim) order; in the compute type when
+    serving, or held in the parameter type and cast to ``cdt`` at use
+    when training."""
 
     def __init__(self, wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
                  wo: torch.Tensor, *, n_heads: int, n_kv: int,
-                 window: Optional[int], rope_theta: float):
+                 window: Optional[int], rope_theta: float,
+                 cdt: Optional[torch.dtype] = None, trainable: bool = False):
         super().__init__()
         self.n_heads, self.n_kv = n_heads, n_kv
         self.head_dim = wq.shape[-1]
         self.window = window
         self.rope_theta = rope_theta
+        self.cdt = cdt
         d = wq.shape[0]
-        self.wq = layers.frozen(wq.reshape(d, -1))
-        self.wk = layers.frozen(wk.reshape(d, -1))
-        self.wv = layers.frozen(wv.reshape(d, -1))
-        self.wo = layers.frozen(wo.reshape(-1, wo.shape[-1]))
+        self.wq = layers.weight(wq.reshape(d, -1), trainable)
+        self.wk = layers.weight(wk.reshape(d, -1), trainable)
+        self.wv = layers.weight(wv.reshape(d, -1), trainable)
+        self.wo = layers.weight(wo.reshape(-1, wo.shape[-1]), trainable)
 
     def _proj_qkv(self, x: torch.Tensor):
         """x (B, S, d) -> q (B, S, H, D), k and v (B, S, KV, D)."""
         B, S, _ = x.shape
-        q = (x @ self.wq).view(B, S, self.n_heads, self.head_dim)
-        k = (x @ self.wk).view(B, S, self.n_kv, self.head_dim)
-        v = (x @ self.wv).view(B, S, self.n_kv, self.head_dim)
+        q = (x @ layers.use(self.wq, self.cdt)).view(B, S, self.n_heads,
+                                                     self.head_dim)
+        k = (x @ layers.use(self.wk, self.cdt)).view(B, S, self.n_kv,
+                                                     self.head_dim)
+        v = (x @ layers.use(self.wv, self.cdt)).view(B, S, self.n_kv,
+                                                     self.head_dim)
         return q, k, v
 
     def _proj_out(self, o: torch.Tensor) -> torch.Tensor:
         B, S = o.shape[:2]
-        return o.reshape(B, S, -1) @ self.wo
+        return o.reshape(B, S, -1) @ layers.use(self.wo, self.cdt)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:

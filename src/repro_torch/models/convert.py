@@ -12,6 +12,9 @@ heads and carry across whole; blocks whose FFN is ``none`` have no
 ``norm2`` and no ``ffn``. An MoE FFN keeps its first ``num_experts``
 experts and router columns, the JAX package's padded experts being
 dead (never routed to); the tree must hold ``padded_experts`` of them.
+``trainable=True`` builds the model for training (``Transformer``); the
+dropped padded heads and experts take exactly zero gradient in the JAX
+package, so their absence changes no gradient of a kept weight.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ def _t(a) -> torch.Tensor:
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping,
-                    device: Device = None) -> Transformer:
+                    device: Device = None,
+                    trainable: bool = False) -> Transformer:
     check_supported(cfg)
     device = resolve_device(device)
     h = cfg.num_heads
@@ -68,4 +72,4 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
             w.update(wg=_t(ffn["wg"][p]), wu=_t(ffn["wu"][p]),
                      ffn_wo=_t(ffn["wo"][p]))
         weights["layers"].append(w)
-    return Transformer(cfg, weights, device)
+    return Transformer(cfg, weights, device, trainable)

@@ -1,35 +1,55 @@
 """Foundational layers of the LM zoo: RMSNorm, the SwiGLU FFN, the
-recurrent mixers' module, the embedding and the rotary position
-embedding.
+recurrent mixers' module, the embedding, the rotary position embedding
+and the chunked cross-entropy of training.
 
 Ported from ``repro/models/layers.py``. The JAX package keeps float32
-weights and casts them to the compute type on every call; the port casts
-them once, when the model is built (``models/transformer.py``), which
-rounds the same way. Norm scales stay float32, as the JAX norms read
-them. ``Annot``, ``shape_only`` and ``chunked_xent`` belong to training
-and the dry-run and are not ported yet.
+weights and casts them to the compute type on every call. A served
+model (``models/transformer.py``) casts them once, when it is built,
+which rounds the same way, and its modules read them as they are
+(``cdt`` None). A model built for training holds them in the config's
+parameter type as trainable Parameters, and its modules cast each to
+the compute type ``cdt`` where they use it (``use``), as the JAX layers
+do. Norm scales stay float32, as the JAX norms read them, and so do the
+mixer weights the JAX package reads in float32 (``FLOAT32_WEIGHTS``).
+``Annot`` and ``shape_only`` belong to the JAX package's sharding and
+dry-run and have no counterpart here.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
+# mixer weights the JAX package casts to float32 where it reads them
+FLOAT32_WEIGHTS = ("A_log", "gn_scale", "r")
 
-def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A weight of a model that serves and does not train."""
-    return nn.Parameter(t, requires_grad=False)
+
+def weight(t: torch.Tensor, trainable: bool) -> nn.Parameter:
+    """A weight: trainable, or frozen (a model that serves)."""
+    return nn.Parameter(t, requires_grad=trainable)
+
+
+def use(t: torch.Tensor, cdt: Optional[torch.dtype]) -> torch.Tensor:
+    """A weight as a module reads it: cast to the compute type ``cdt``
+    (training), or as held (``cdt`` None: a served model's weights are
+    already in it)."""
+    return t if cdt is None or t.dtype == cdt else t.to(cdt)
 
 
 class RMSNorm(nn.Module):
     """``x * rsqrt(mean(x^2) + eps) * scale`` over the last dim, float32
-    inside; through ``ops.rmsnorm`` (the CUDA kernel on the card)."""
+    inside; through ``ops.rmsnorm`` (the CUDA kernel on the card, and
+    its backward kernel under autograd)."""
 
-    def __init__(self, scale: torch.Tensor, eps: float):
+    def __init__(self, scale: torch.Tensor, eps: float,
+                 trainable: bool = False):
         super().__init__()
-        self.scale = frozen(scale.float())
+        self.scale = weight(scale.float(), trainable)
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -37,33 +57,46 @@ class RMSNorm(nn.Module):
 
 
 class FFN(nn.Module):
-    """Dense SwiGLU: ``(silu(x @ wg) * (x @ wu)) @ wo``, with the weights
-    already in the compute type."""
+    """Dense SwiGLU: ``(silu(x @ wg) * (x @ wu)) @ wo``, the weights read
+    in the compute type (``use``)."""
 
-    def __init__(self, wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor):
+    def __init__(self, wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor,
+                 cdt: Optional[torch.dtype] = None, trainable: bool = False):
         super().__init__()
-        self.wg, self.wu, self.wo = frozen(wg), frozen(wu), frozen(wo)
+        self.wg, self.wu, self.wo = (weight(t, trainable)
+                                     for t in (wg, wu, wo))
+        self.cdt = cdt
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(x, self.wg, self.wu, self.wo)
+        return swiglu(x, *(use(t, self.cdt)
+                           for t in (self.wg, self.wu, self.wo)))
 
 
 class Mixer(nn.Module):
-    """A recurrent mixer of a served block (Mamba, mLSTM or sLSTM): its
-    frozen weights, and the module functions ``forward(x, w, **kw)`` and
-    ``decode(x, w, cache, **kw)`` that read them with ``kw`` (``d_state``
-    or ``n_heads``)."""
+    """A recurrent mixer of a block (Mamba, mLSTM or sLSTM): its weights,
+    and the module functions ``forward(x, w, **kw)`` and ``decode(x, w,
+    cache, **kw)`` that read them with ``kw`` (``d_state`` or
+    ``n_heads``). With a compute type ``cdt`` (training) each weight but
+    ``FLOAT32_WEIGHTS`` is cast to it at use."""
 
-    def __init__(self, w, forward, decode, **kw):
+    def __init__(self, w, forward, decode, cdt: Optional[torch.dtype] = None,
+                 trainable: bool = False, **kw):
         super().__init__()
-        self.w = nn.ParameterDict({n: frozen(t) for n, t in w.items()})
-        self.fns, self.kw = (forward, decode), kw
+        self.w = nn.ParameterDict({n: weight(t, trainable)
+                                   for n, t in w.items()})
+        self.fns, self.kw, self.cdt = (forward, decode), kw, cdt
+
+    def _weights(self):
+        if self.cdt is None:
+            return self.w
+        return {n: t if n in FLOAT32_WEIGHTS else use(t, self.cdt)
+                for n, t in self.w.items()}
 
     def forward(self, x: torch.Tensor):
-        return self.fns[0](x, self.w, **self.kw)
+        return self.fns[0](x, self._weights(), **self.kw)
 
     def decode(self, x: torch.Tensor, cache):
-        return self.fns[1](x, self.w, cache, **self.kw)
+        return self.fns[1](x, self._weights(), cache, **self.kw)
 
 
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -97,3 +130,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _xent_chunk(xc: torch.Tensor, table: torch.Tensor,
+                lc: torch.Tensor) -> torch.Tensor:
+    logits = (xc @ table.T).float()                           # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    return (lse - gold).sum()
+
+
+def chunked_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+                 chunk: int) -> torch.Tensor:
+    """x (B, S, d) in the compute type; table (V, d) in the compute type;
+    labels (B, S) -> the mean NLL, float32
+    (``repro/models/layers.py::chunked_xent``). The logits are computed
+    ``chunk`` tokens at a time and each chunk is checkpointed, so the
+    (B, S, V) logits are never whole, in the forward or the backward."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"the sequence {S} is not a multiple of the logit "
+                         f"chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        xc, lc = x[:, i:i + chunk], labels[:, i:i + chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_xent_chunk, xc, table, lc,
+                                       use_reentrant=False)
+        else:
+            total = total + _xent_chunk(xc, table, lc)
+    return total / (B * S)

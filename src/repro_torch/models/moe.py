@@ -18,7 +18,7 @@ without a mesh, and ``shard`` is a no-op there.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -154,28 +154,40 @@ def moe_ffn(x: torch.Tensor, params: Mapping, *, n_experts: int,
 
 
 class MoE(nn.Module):
-    """The MoE FFN of a served block: weights in the compute type, the
-    real experts only (``real_experts``)."""
+    """The MoE FFN of a block, the real experts only (``real_experts``):
+    weights in the compute type when serving, or held in the parameter
+    type and cast to ``cdt`` at use when training."""
 
     def __init__(self, w: Mapping, *, n_experts: int, top_k: int,
-                 capacity_factor: float):
+                 capacity_factor: float, cdt: Optional[torch.dtype] = None,
+                 trainable: bool = False):
         super().__init__()
         self.n_experts, self.top_k = n_experts, top_k
         self.capacity_factor = capacity_factor
-        self.router = layers.frozen(w["router"])
-        self.wg, self.wu, self.wo = (layers.frozen(w[n])
+        self.cdt = cdt
+        self.router = layers.weight(w["router"], trainable)
+        self.wg, self.wu, self.wo = (layers.weight(w[n], trainable)
                                      for n in ("wg", "wu", "wo"))
-        self.shared = layers.FFN(**w["shared"]) if "shared" in w else None
+        self.shared = layers.FFN(**w["shared"], cdt=cdt,
+                                 trainable=trainable) \
+            if "shared" in w else None
 
     def params(self) -> Dict:
-        p = {"router": self.router, "wg": self.wg, "wu": self.wu,
-             "wo": self.wo}
+        c = self.cdt
+        p = {n: layers.use(getattr(self, n), c)
+             for n in ("router", "wg", "wu", "wo")}
         if self.shared is not None:
-            p["shared"] = {"wg": self.shared.wg, "wu": self.shared.wu,
-                           "wo": self.shared.wo}
+            p["shared"] = {n: layers.use(getattr(self.shared, n), c)
+                           for n in ("wg", "wu", "wo")}
         return p
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return moe_ffn(x, self.params(), n_experts=self.n_experts,
                        top_k=self.top_k,
                        capacity_factor=self.capacity_factor)[0]
+
+    def forward_aux(self, x: torch.Tensor):
+        """Training's forward: (y, (lb_loss, z_loss))."""
+        return moe_forward(x, self.params(), n_experts=self.n_experts,
+                           top_k=self.top_k,
+                           capacity_factor=self.capacity_factor)

@@ -74,13 +74,27 @@ def linear_scan_(a: torch.Tensor, b: torch.Tensor
     return a, b
 
 
+def linear_scan(a: torch.Tensor, b: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``linear_scan_`` out of place, for autograd: the same steps and
+    the same bits, each step's result a new tensor."""
+    s, n = 1, a.shape[1]
+    while s < n:
+        b = torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:], b[:, :-s])],
+                      dim=1)
+        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
+        s *= 2
+    return a, b
+
+
 def mamba_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor], *,
                   d_state: int, chunk: int = CHUNK
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill. x (B, L, d) in the compute type -> (out (B, L, d), cache
     with the final state ``h`` (B, di, N) float32 and the conv tail
     ``conv``: the last K-1 rows of the conv's input, fewer when L < K-1,
-    as the JAX package slices them)."""
+    as the JAX package slices them). Under autograd the scan runs out of
+    place (``linear_scan``), to the same bits; serving scans in place."""
     B, L, _ = x.shape
     c = chunk_of(L, chunk)
     di = p["in_proj"].shape[-1] // 2
@@ -98,8 +112,12 @@ def mamba_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor], *,
         dt_c = dt32[:, i:i + c, :, None]                      # (B,c,di,1)
         dA = torch.exp(dt_c * A)                              # (B,c,di,N)
         dBx = dt_c * B32[:, i:i + c, None, :] * x32[:, i:i + c, :, None]
-        cum_a, h_loc = linear_scan_(dA, dBx)
-        hs = h_loc.addcmul_(cum_a, h[:, None])
+        if torch.is_grad_enabled():
+            cum_a, h_loc = linear_scan(dA, dBx)
+            hs = h_loc.addcmul(cum_a, h[:, None])
+        else:
+            cum_a, h_loc = linear_scan_(dA, dBx)
+            hs = h_loc.addcmul_(cum_a, h[:, None])
         del cum_a
         ys.append(torch.einsum("bcdn,bcn->bcd", hs, C32[:, i:i + c]))
         h = hs[:, -1].clone()

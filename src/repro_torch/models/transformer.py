@@ -1,5 +1,5 @@
-"""Model assembly for serving: embedding, a stack of blocks, the final
-norm and the LM head.
+"""Model assembly for serving and training: embedding, a stack of blocks,
+the final norm and the LM head.
 
 Ported from ``repro/models/transformer.py``: every mixer (``attn``,
 ``attn_window``, ``mamba``, ``mlstm``, ``slstm``) and FFN (``dense``,
@@ -11,14 +11,22 @@ them; the port holds one ``Block`` module per layer and loops over them,
 layer ``p * len(pattern) + j`` being period p's pattern position j.
 
 Entry points:
-  init_model(cfg, generator, device)      -> Transformer (random weights)
+  init_model(cfg, generator, device, trainable) -> Transformer
   prefill(model, tokens, prefix_embeds)   -> (last_logits, caches)
   decode_step(model, caches, tokens, pos) -> (logits, caches), in place
   init_caches(cfg, batch, cache_len, device) -> caches
+  forward_hidden(model, tokens, prefix_embeds) -> (x, (lb, z))
+  train_loss(model, batch)                -> nll + 0.01 lb + 0.001 z
 ``models/convert.py::params_from_jax`` builds the model from the JAX
-package's weights instead. Weights are cast once, when the model is
-built, to ``cfg.compute_dtype``; norm scales and the weights the JAX
-package reads in float32 (``FLOAT32_WEIGHTS``) stay float32.
+package's weights instead. A served model's weights are cast once, when
+it is built, to ``cfg.compute_dtype``; norm scales and the weights the
+JAX package reads in float32 (``FLOAT32_WEIGHTS``) stay float32. A model
+built with ``trainable=True`` holds them as trainable Parameters in
+``cfg.param_dtype`` (norm scales float32), each module casting them to
+the compute type where it uses them, as the JAX layers do; with
+``cfg.remat`` each block of ``forward_hidden`` is checkpointed
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` with
+nothing saveable), so its activations are recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.kernels.ops import Device, resolve_device
@@ -35,8 +44,9 @@ Caches = List[Dict]
 
 MIXERS = ("attn", "attn_window", "mamba", "mlstm", "slstm")
 FFNS = ("dense", "moe", "none")
-# mixer weights the JAX package casts to float32 where it reads them
-FLOAT32_WEIGHTS = ("A_log", "gn_scale", "r")
+FLOAT32_WEIGHTS = layers.FLOAT32_WEIGHTS
+AUX_LB_WEIGHT = 0.01       # repro/models/transformer.py's aux weights
+AUX_Z_WEIGHT = 0.001
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -64,43 +74,49 @@ def check_prompt_length(cfg: ModelConfig, n: int) -> None:
 
 
 def recurrent_mixer(cfg: ModelConfig, mixer: str,
-                    w: Dict[str, torch.Tensor]) -> layers.Mixer:
-    """The ``mamba``, ``mlstm`` or ``slstm`` mixer over its weights."""
+                    w: Dict[str, torch.Tensor], **held) -> layers.Mixer:
+    """The ``mamba``, ``mlstm`` or ``slstm`` mixer over its weights
+    (``held``: the compute type ``cdt`` and ``trainable``)."""
     if mixer == "mamba":
         return layers.Mixer(w, ssm.mamba_forward, ssm.mamba_decode,
-                            d_state=cfg.mamba_d_state)
+                            d_state=cfg.mamba_d_state, **held)
     fns = {"mlstm": (xlstm.mlstm_forward, xlstm.mlstm_decode),
            "slstm": (xlstm.slstm_forward, xlstm.slstm_decode)}[mixer]
-    return layers.Mixer(w, *fns, n_heads=cfg.num_heads)
+    return layers.Mixer(w, *fns, n_heads=cfg.num_heads, **held)
 
 
 class Block(nn.Module):
     """One layer: its mixer (attention, Mamba, mLSTM or sLSTM), then the
     dense SwiGLU FFN, the MoE FFN when the weights hold ``moe``
-    (``models/moe.py``), or no FFN (``ffn == "none"``, no ``norm2``)."""
+    (``models/moe.py``), or no FFN (``ffn == "none"``, no ``norm2``).
+    ``cdt``: the compute type the modules cast their weights to at use
+    (None when they are held in it); ``trainable``: the weights take
+    gradients."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec,
-                 w: Dict[str, torch.Tensor]):
+                 w: Dict[str, torch.Tensor],
+                 cdt: Optional[torch.dtype] = None, trainable: bool = False):
         super().__init__()
+        held = {"cdt": cdt, "trainable": trainable}
         self.window = spec.window
         self.attends = spec.mixer in ("attn", "attn_window")
-        self.norm1 = layers.RMSNorm(w["norm1"], cfg.norm_eps)
+        self.norm1 = layers.RMSNorm(w["norm1"], cfg.norm_eps, trainable)
         if self.attends:
             self.mixer = attention.Attention(
                 w["wq"], w["wk"], w["wv"], w["wo"], n_heads=cfg.num_heads,
                 n_kv=cfg.num_kv_heads, window=spec.window,
-                rope_theta=cfg.rope_theta)
+                rope_theta=cfg.rope_theta, **held)
         else:
-            self.mixer = recurrent_mixer(cfg, spec.mixer, w["mixer"])
+            self.mixer = recurrent_mixer(cfg, spec.mixer, w["mixer"], **held)
         self.norm2 = self.ffn = None
         if "moe" in w:
             self.ffn = moe.MoE(w["moe"], n_experts=cfg.num_experts,
                                top_k=cfg.top_k,
-                               capacity_factor=cfg.capacity_factor)
+                               capacity_factor=cfg.capacity_factor, **held)
         elif "wg" in w:
-            self.ffn = layers.FFN(w["wg"], w["wu"], w["ffn_wo"])
+            self.ffn = layers.FFN(w["wg"], w["wu"], w["ffn_wo"], **held)
         if self.ffn is not None:
-            self.norm2 = layers.RMSNorm(w["norm2"], cfg.norm_eps)
+            self.norm2 = layers.RMSNorm(w["norm2"], cfg.norm_eps, trainable)
 
     def _ffn(self, x):
         return x if self.ffn is None else x + self.ffn(self.norm2(x))
@@ -124,6 +140,23 @@ class Block(nn.Module):
             cache = {"k": k, "v": v}
         return self._ffn(x + out), cache
 
+    def train_forward(self, x, positions):
+        """Training's forward (``_block_forward`` without a cache): (x,
+        lb_loss, z_loss), the MoE aux losses float32 zeros unless the FFN
+        is MoE."""
+        h = self.norm1(x)
+        out = self.mixer(h, positions)[0] if self.attends else \
+            self.mixer(h)[0]
+        x = x + out
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.ffn is None:
+            return x, zero, zero
+        h = self.norm2(x)
+        if isinstance(self.ffn, moe.MoE):
+            out, (lb, z) = self.ffn.forward_aux(h)
+            return x + out, lb, z
+        return x + self.ffn(h), zero, zero
+
     def decode(self, x, cache, pos):
         """One token a row; ``cache`` is updated in place (a ring row of
         k, v written, or a recurrent state replaced)."""
@@ -137,7 +170,9 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The served model. ``weights``: float32 tensors in the JAX
+    """The model, served, or trained when ``trainable`` (weights held in
+    ``cfg.param_dtype`` as trainable Parameters, cast to the compute type
+    at use). ``weights``: float32 tensors in the JAX
     package's layout with the layer axis unstacked and only the real
     query heads: ``embed`` (V, d), ``unembed`` (V, d) unless the config
     ties them, ``final_norm`` (d,), and ``layers``, an iterable of one
@@ -151,33 +186,38 @@ class Transformer(nn.Module):
     E real experts, and optionally ``shared`` (``wg``, ``wu``, ``wo`` of
     a dense SwiGLU)."""
 
-    def __init__(self, cfg: ModelConfig, weights: Dict, device: torch.device):
+    def __init__(self, cfg: ModelConfig, weights: Dict, device: torch.device,
+                 trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         cdt = torch_dtype(cfg.compute_dtype)
+        # the type the weights are held in, and the one modules cast to
+        held = torch_dtype(cfg.param_dtype) if trainable else cdt
+        self.cdt = cdt if trainable else None
 
         def cast(t):
-            return t.to(device=device, dtype=cdt)
+            return t.to(device=device, dtype=held)
 
         def cast_block(w):
             return {n: (cast_block(t) if isinstance(t, dict) else
                         t.to(device=device, dtype=torch.float32)
-                        if n.startswith("norm") or n in FLOAT32_WEIGHTS
+                        if n.startswith("norm") or
+                        (n in FLOAT32_WEIGHTS and not trainable)
                         else cast(t))
                     for n, t in w.items()}
 
-        self.embed = layers.frozen(cast(weights["embed"]))
+        self.embed = layers.weight(cast(weights["embed"]), trainable)
         self.unembed = None if cfg.tie_embeddings else \
-            layers.frozen(cast(weights["unembed"]))
+            layers.weight(cast(weights["unembed"]), trainable)
         blocks = []
         for i, w in enumerate(weights["layers"]):
             blocks.append(Block(cfg, cfg.pattern[i % len(cfg.pattern)],
-                                cast_block(w)))
+                                cast_block(w), self.cdt, trainable))
             del w           # freed before the next layer is drawn
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = layers.RMSNorm(
-            weights["final_norm"].to(device), cfg.norm_eps)
+            weights["final_norm"].to(device), cfg.norm_eps, trainable)
         # sqrt(d_model) rounded to the compute type, as the JAX package
         # multiplies a compute-type embedding by a Python float
         self.register_buffer("embed_scale", torch.tensor(
@@ -188,11 +228,25 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return layers.embed(tokens, self.embed) * self.embed_scale
+        return layers.embed(tokens, layers.use(self.embed, self.cdt)) * \
+            self.embed_scale
+
+    def _table(self) -> torch.Tensor:
+        """The LM head's table in the compute type."""
+        table = self.embed if self.unembed is None else self.unembed
+        return layers.use(table, self.cdt)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        table = self.embed if self.unembed is None else self.unembed
-        return layers.unembed_logits(x, table)
+        return layers.unembed_logits(x, self._table())
+
+    def decay_mask(self) -> Dict[str, bool]:
+        """Which weights AdamW decays, by ``named_parameters`` name: the
+        JAX package decays every leaf of two or more dimensions of its
+        parameter tree, whose block weights carry a leading layer axis,
+        so every block weight (norm scales and biases too) and the
+        embedding tables, but not the final norm's scale."""
+        return {n: n.startswith("blocks.") or p.dim() >= 2
+                for n, p in self.named_parameters()}
 
 
 def _draw(generator: torch.Generator, shape, scale: Optional[float] = None):
@@ -284,7 +338,7 @@ def _draw_layer(cfg: ModelConfig, spec: BlockSpec,
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-               device: Device = None) -> Transformer:
+               device: Device = None, trainable: bool = False) -> Transformer:
     """Random weights with the JAX package's distributions, drawn from
     ``generator`` (a CPU generator seeded 0 if None) on the generator's
     device, then cast to the compute type on ``device`` (the card
@@ -304,7 +358,45 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         weights["unembed"] = _draw(g, (cfg.vocab_size, d), d ** -0.5)
     weights["layers"] = (_draw_layer(cfg, cfg.pattern[i % len(cfg.pattern)],
                                      g) for i in range(cfg.num_layers))
-    return Transformer(cfg, weights, device)
+    return Transformer(cfg, weights, device, trainable)
+
+
+def forward_hidden(model: Transformer, tokens: torch.Tensor,
+                   prefix_embeds: Optional[torch.Tensor] = None):
+    """The training forward (``repro/models/transformer.py::
+    forward_hidden`` without caches): tokens (B, S), optional prefix
+    embeddings (B, P, d) placed before them -> (the final-normed hidden
+    states (B, P+S, d), (lb_loss, z_loss) summed over the layers, float32).
+    With ``cfg.remat`` and grad enabled each block is checkpointed: its
+    forward is run again in the backward, and routes the same tokens to
+    the same experts because every forward kernel is bit-reproducible."""
+    x = model._embed(tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
+    lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = model.cfg.remat and torch.is_grad_enabled()
+    for block in model.blocks:
+        if remat:
+            x, lb_i, z_i = checkpoint(block.train_forward, x, positions,
+                                      use_reentrant=False)
+        else:
+            x, lb_i, z_i = block.train_forward(x, positions)
+        lb, z = lb + lb_i, z + z_i
+    return model.final_norm(x), (lb, z)
+
+
+def train_loss(model: Transformer, batch: Dict) -> torch.Tensor:
+    """batch: ``tokens`` and ``labels`` (B, S), optional
+    ``prefix_embeds`` (B, P, d) -> ``nll + 0.01 lb + 0.001 z``, float32
+    (``repro/models/transformer.py::train_loss``): the prefix positions
+    are sliced off before the chunked cross-entropy."""
+    prefix = batch.get("prefix_embeds")
+    x, (lb, z) = forward_hidden(model, batch["tokens"], prefix)
+    npfx = 0 if prefix is None else prefix.shape[1]
+    nll = layers.chunked_xent(x[:, npfx:], model._table(), batch["labels"],
+                              model.cfg.logit_chunk)
+    return nll + AUX_LB_WEIGHT * lb + AUX_Z_WEIGHT * z
 
 
 @torch.no_grad()

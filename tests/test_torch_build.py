@@ -75,13 +75,13 @@ def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
 # every kernel the port builds: the five TPU kernels' counterparts and
 # the scorer's dense and head layers
 SOURCES = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention",
-           "moe_gmm", "scorer_head")
+           "moe_gmm", "scorer_head", "flash_attention_bwd")
 
 
 @pytest.mark.parametrize("name", SOURCES)
 def test_each_kernel_source_has_its_own_build(name):
     """Each source builds into its own library under ``BUILD_DIR``, named
-    after it and keyed by its text: the six keys differ."""
+    after it and keyed by its text: the seven keys differ."""
     assert build.source(name).exists()
     path = build.library_path(name)
     assert path.parent == build.BUILD_DIR

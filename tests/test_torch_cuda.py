@@ -710,3 +710,165 @@ def test_engine_splices_the_recurrent_state_on_the_card(cuda, arch):
         {r: q.out for r, q in eng_cpu.requests.items()}
     assert rms.rmsnorm.launches > counts[0]
     assert (gmm.moe_gmm.launches > counts[1]) == (cfg.num_experts > 0)
+
+
+# -- training: the backward kernels -------------------------------------------
+
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # relative to the largest
+
+
+def _close(got, want, tol, what):
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max()) / scale
+    assert err <= tol, f"{what}: {err}"
+
+
+@pytest.mark.parametrize("name", BWD_TOL)
+@pytest.mark.parametrize("rows,d", [(1, 64), (37, 199), (300, 200),
+                                    (4096, 1536), (2048, 2560), (8, 6144)])
+def test_rmsnorm_bwd_kernel_matches_plain_version(cuda, name, rows, d):
+    """dx and dscale within tolerance of ``ref.rmsnorm_bwd``, and a second
+    launch gives the same bits (dscale's partial rows are added in a fixed
+    order; no atomics)."""
+    dtype = LM_DTYPES[name][0]
+    x = _randn((rows, d), dtype, cuda, d) * 3
+    scale = 1 + 0.1 * _randn((d,), torch.float32, cuda, d + 1)
+    dy = _randn((rows, d), dtype, cuda, d + 2)
+    before = rms.rmsnorm_bwd.launches
+    dx, ds = rms.rmsnorm_bwd(x, scale, dy)
+    torch.cuda.synchronize()
+    assert rms.rmsnorm_bwd.launches == before + 1
+    assert dx.dtype == dtype and ds.dtype == torch.float32
+    want = ref.rmsnorm_bwd(x, scale, dy)
+    _close(dx, want[0], BWD_TOL[name], "dx")
+    _close(ds, want[1], BWD_TOL[name], "dscale")
+    dx2, ds2 = rms.rmsnorm_bwd(x, scale, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+# (B, Sq, Sk, H, KV, D, window, q_offset): groups of 1, 2 and 3, windows,
+# q_offset and suffix-aligned q, every head dim around the tiles
+FLASH_BWD = [
+    (2, 70, 70, 4, 2, 16, 32, 0),
+    (1, 100, 100, 3, 1, 64, 33, 0),
+    (1, 40, 130, 2, 2, 128, None, 0),
+    (1, 30, 90, 4, 4, 32, 20, 50),
+    (2, 65, 300, 6, 2, 80, 129, 100),
+    (1, 257, 257, 6, 2, 256, None, 0),
+    (1, 129, 129, 2, 1, 256, 100, 0),
+    (4, 1024, 1024, 24, 8, 64, None, 0),      # granite's training shape
+    (1, 4096, 4096, 32, 8, 80, 4096, 0),      # h2o's, one row
+]
+
+
+@pytest.mark.parametrize("name", BWD_TOL)
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,window,q_offset", FLASH_BWD)
+def test_flash_attention_bwd_kernel_matches_plain_version(
+        cuda, name, B, Sq, Sk, H, KV, D, window, q_offset):
+    """The forward's log-sum-exp against the plain scores', then dq, dk,
+    dv within tolerance of ``ref.attention_bwd``, and a second launch
+    gives the same bits (a group's heads summed in one block)."""
+    dtype = LM_DTYPES[name][0]
+    q = _randn((B, Sq, H, D), dtype, cuda, 1)
+    k = _randn((B, Sk, KV, D), dtype, cuda, 2)
+    v = _randn((B, Sk, KV, D), dtype, cuda, 3)
+    dout = _randn((B, Sq, H, D), dtype, cuda, 4)
+    out, lse = fa._forward(q, k, v, True, window, q_offset, True)
+    keep = ref.keep_mask(Sq, Sk, True, window, q_offset, cuda)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(),
+                     ref.expand_kv(k, H).float()) / D ** 0.5
+    want_lse = torch.logsumexp(s.masked_fill(~keep, -float("inf")), -1)
+    _close(lse, want_lse, 1e-5, "lse")
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                 window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = ref.attention_bwd(q, k, v, out, dout, causal=True, window=window,
+                             q_offset=q_offset)
+    for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape
+        _close(g, w, BWD_TOL[name], n)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                   window=window, q_offset=q_offset)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("name", BWD_TOL)
+@pytest.mark.parametrize("E,C,d,f", [(40, 1024, 1536, 512),
+                                     (40, 1024, 512, 1536),
+                                     (40, 275, 1536, 512), (3, 13, 40, 24),
+                                     (8, 1, 64, 32)])
+def test_moe_gmm_bwd_matches_plain_version(cuda, name, E, C, d, f):
+    """dx and dw through the forward kernel (C not a multiple of 8 padded
+    with zero rows for dw), within tolerance of ``ref.moe_gmm_bwd``; the
+    same bits again."""
+    dtype = LM_DTYPES[name][0]
+    x = _randn((E, C, d), dtype, cuda, 7)
+    w = (_randn((E, d, f), torch.float32, cuda, 8) / d ** 0.5).to(dtype)
+    dy = _randn((E, C, f), dtype, cuda, 9)
+    before = gmm.moe_gmm_bwd.launches
+    dx, dw = gmm.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert gmm.moe_gmm_bwd.launches == before + 2
+    want = ref.moe_gmm_bwd(x, w, dy)
+    _close(dx, want[0], BWD_TOL[name], "dx")
+    _close(dw, want[1], BWD_TOL[name], "dw")
+    dx2, dw2 = gmm.moe_gmm_bwd(x, w, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+def _grads_of(fn, inputs):
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ins)
+    g = torch.ones_like(out) if out.dim() == 0 else \
+        _randn(out.shape, out.dtype, out.device, 11)
+    out.backward(g)
+    return out.detach(), [t.grad for t in ins]
+
+
+@pytest.mark.parametrize("name", BWD_TOL)
+def test_autograd_functions_match_the_plain_path(cuda, name):
+    """``RMSNormFn``, ``FlashAttentionFn`` and ``MoeGmmFn`` on the card:
+    output and every input's gradient against autograd of the plain
+    forward (a gradcheck against the plain path, not finite
+    differences)."""
+    dtype = LM_DTYPES[name][0]
+    tol = BWD_TOL[name]
+    x = _randn((64, 256), dtype, cuda, 1)
+    scale = 1 + 0.1 * _randn((256,), torch.float32, cuda, 2)
+    cases = [(lambda a, s: rms.rmsnorm(a, s), lambda a, s: ref.rmsnorm(a, s),
+              (x, scale))]
+    q = _randn((2, 100, 6, 64), dtype, cuda, 3)
+    k = _randn((2, 100, 2, 64), dtype, cuda, 4)
+    v = _randn((2, 100, 2, 64), dtype, cuda, 5)
+    cases.append((lambda a, b, c: fa.flash_attention(a, b, c, window=40),
+                  lambda a, b, c: ref.attention(a, b, c, window=40),
+                  (q, k, v)))
+    xe = _randn((4, 21, 64), dtype, cuda, 6)
+    we = (_randn((4, 64, 32), torch.float32, cuda, 7) / 8).to(dtype)
+    cases.append((gmm.moe_gmm, ref.moe_gmm, (xe, we)))
+    for kernel, plain, ins in cases:
+        out_k, g_k = _grads_of(kernel, ins)
+        out_p, g_p = _grads_of(plain, ins)
+        _close(out_k, out_p, tol, "out")
+        for a, b in zip(g_k, g_p):
+            _close(a, b, tol, "grad")
+
+
+def test_training_steps_on_the_card(cuda, tmp_path):
+    """Two steps of granite-moe-3b-a800m's smoke config through the
+    launcher on the card: finite losses, and every kernel of the path
+    launched forward and backward."""
+    from repro_torch.launch import train as launch_train
+    counts = (rms.rmsnorm_bwd.launches, fa.flash_attention_bwd.launches,
+              gmm.moe_gmm_bwd.launches)
+    out = launch_train.run(["--arch", "granite-moe-3b-a800m", "--smoke",
+                            "--steps", "2", "--batch", "2", "--seq", "64",
+                            "--ckpt", str(tmp_path)])
+    assert out["steps"] == 2 and all(np.isfinite(out["losses"]))
+    L = get_smoke_config("granite-moe-3b-a800m").num_layers
+    assert rms.rmsnorm_bwd.launches - counts[0] == 2 * (2 * L + 1)
+    assert fa.flash_attention_bwd.launches - counts[1] == 2 * L
+    assert gmm.moe_gmm_bwd.launches - counts[2] == 2 * 3 * L * 2
