@@ -4,10 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's seven CUDA kernel sources from this checkout,
-all at once, prints each kernel's registers, spills and shared memory,
-and counts the tensor-core instructions in the SASS of the three whose
-bfloat16 path runs on them (HGMMA in grouped expert matmul and flash
-attention, HMMA in decode attention); then drives its paths. The ZC² query path: the conv kernel
+all at once, prints each kernel's registers, spills and shared memory
+(and ptxas's notes on serialized wgmma pipelines; flash backward's
+tensor-core kernels at head dims 64 and 80 may not spill), and counts
+the tensor-core instructions in the SASS of the four whose bfloat16
+path runs on them (HGMMA in grouped expert matmul, flash attention and
+its backward, HMMA in decode attention); then takes three bf16 AdamW
+steps of 2 full-width granite-moe-3b-a800m layers, to compare with the
+same steps after every other phase; then drives its paths. The ZC² query path: the conv kernel
 against its plain PyTorch version at every conv layer shape of the
 reduced operator family, and the scorer's dense and head kernel against
 its own, the scoring runtime against the plain forward and its three
@@ -40,10 +44,13 @@ the head shapes and widths of the other accepted zoo configs
 (gemma3-12b's head dim 256, llama4-maverick-400b-a17b's 5 and
 granite-20b's 48 query heads per kv head, granite-20b's 6144 wide norm).
 Then training: the backward kernels (rmsnorm's, flash attention's dQ and
-dK/dV, moe_gmm's dx and dw on its own kernel) against their plain
-versions at granite-moe-3b-a800m's training shapes and h2o-danube-1.8b's
-head dim 80 over 4096 tokens, each timed beside its plain version and the
-library's backward; one float32 step of 2 full-width granite layers on
+dK/dV, moe_gmm's dx and dw on its own kernel, read in place: one call
+captured into a CUDA graph holds its two GEMM launches and nothing else)
+against their plain versions at granite-moe-3b-a800m's training shapes
+and h2o-danube-1.8b's head dim 80 over 4096 tokens, each timed beside
+its plain version and the library's backward; the three AdamW steps
+again, bit for bit the first ones; one float32 step of 2 full-width
+granite layers on
 the kernel path against the plain path; granite-moe-3b-a800m at its
 published config for 10 AdamW steps of 4 x 1024 tokens through
 ``repro_torch.launch.train`` (the last step traced); and xlstm-125m's
@@ -192,6 +199,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # relative to max
 TRAIN_ARCH = MOE_ARCH
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
 TRAIN_GRAD_TOL = 1e-3        # float32 parity of every gradient, relative
+STEP_BITS_STEPS = 3          # steps of the history check (step_bits_phase)
 RESUME_ARCH = XLSTM_ARCH
 RESUME_BATCH, RESUME_SEQ, RESUME_STEPS = 4, 256, 8
 # the stacked superbatch: members of a grouped launch checked against the
@@ -230,11 +238,17 @@ GMM_CAPS = (8, 32, 275, 512)
 GMM_DIMS = ((1536, 512), (512, 1536))
 # the kernels whose bf16 path runs on the tensor cores, with the name
 # their bf16 kernels carry and the instruction they must hold: wgmma fed
-# by TMA (HGMMA) in grouped expert matmul and flash attention, mma.sync
+# by TMA (HGMMA) in grouped expert matmul (forward and backward), flash
+# attention and its backward (dQ and dK/dV at head dims 16-128), mma.sync
 # (HMMA) in decode attention
 TC_KERNELS = {"moe_gmm": ("gmm_wgmma", "HGMMA"),
               "flash_attention": ("flash_fwd_wgmma", "HGMMA"),
+              "flash_attention_bwd": ("_wgmma", "HGMMA"),
               "decode_attention": ("decode_bf16", "HMMA")}
+# tensor-core kernels that must compile without spilling: flash
+# backward's at the trained head dims (granite's 64, h2o's 80)
+NO_SPILL = ("flash_bwd_dq_wgmma<64>", "flash_bwd_dkdv_wgmma<64>",
+            "flash_bwd_dq_wgmma<80>", "flash_bwd_dkdv_wgmma<80>")
 
 
 class SmokeFailure(AssertionError):
@@ -346,13 +360,27 @@ def build_phase() -> None:
           f"{time.perf_counter() - t0:.3f} s")
     for name, path in paths.items():
         print(f"build: {path.relative_to(ROOT)}")
-        res = build.resources(build.logs.get(name, ""))
+        log = build.logs.get(name, "")
+        res = build.resources(log)
         short = demangle(r["kernel"] for r in res)
         for r in res:
             print(f"  ptxas {short[r['kernel']]}: {r['registers']} "
                   f"registers, {r['spill_stores']} B spill stores, "
                   f"{r['spill_loads']} B spill loads, {r['smem']} B static "
                   f"smem")
+            if any(k in short[r["kernel"]] for k in NO_SPILL):
+                check(r["spill_stores"] == r["spill_loads"] == 0,
+                      f"{short[r['kernel']]} spills")
+        # ptxas's notes on wgmma pipelines it had to serialize
+        for line in log.splitlines():
+            if "Performance Loss" in line:
+                print("  " + line.strip())
+        if name == "flash_attention_bwd" and name in build.logs and \
+                any(k != v for k, v in short.items()):   # demangled
+            found = [k for k in NO_SPILL
+                     if any(k in short[r["kernel"]] for r in res)]
+            check(len(found) == len(NO_SPILL),
+                  f"ptxas lines of {NO_SPILL} not found: {found}")
     for name, (tag, opcode) in TC_KERNELS.items():
         counts = build.sass_counts(name, opcode)
         short = demangle(counts)
@@ -1078,11 +1106,15 @@ def _kept_pairs(sq, sk, window, q_offset=0):
     return int(np.sum(np.minimum(pos, sk - 1) - lo + 1))
 
 
-def _row(name, what, err, t, bound, by):
+def _row(name, what, err, t, bound, by, rel=None):
     row = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
            "library_ms": t["library"], "bound_ms": bound, "bound_by": by,
            "call_ms": t["call"]}
-    print(f"kernel {name} {what}: max|err| {err:.3e}  kernel "
+    if rel is not None:
+        row["rel_err"] = rel
+    print(f"kernel {name} {what}: max|err| {err:.3e}" +
+          (f" ({rel:.3e} of the largest entry)" if rel is not None else "") +
+          "  kernel "
           f"{row['ms']:.4f} ms (per call with the host "
           f"{row['call_ms']:.4f} ms)  plain {row['plain_ms']:.4f} ms  library "
           f"{row['library_ms']:.4f} ms  bound {bound:.4f} ms ({by})  "
@@ -1778,6 +1810,11 @@ def zero_train_launches():
         f.launches = 0
 
 
+def _abs_err(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+
+
 def _rel_err(got, want) -> float:
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
@@ -1794,6 +1831,93 @@ def _library_grad(fn, inputs, dout):
     return lambda: torch.autograd.grad(out, ins, dout, retain_graph=True)
 
 
+def _gmm_bwd_on_copies(x, w, dy):
+    """dx and dw by the forward kernel on explicit transposed copies, C
+    padded with zero rows to a multiple of 8 for dw: the backward before
+    it read its operands in place."""
+    pad = -x.shape[1] % 8
+    xt = F.pad(x, (0, 0, 0, pad)).transpose(1, 2).contiguous()
+    return (gmm._product(dy, w.transpose(1, 2).contiguous()),
+            gmm._product(xt, F.pad(dy, (0, 0, 0, pad))))
+
+
+def gmm_bwd_kernels(x, w, dy) -> list:
+    """``moe_gmm_bwd``'s no-copy check: one call, captured into a CUDA graph
+    (``build.graph_kernels``), is its two GEMM launches and nothing else:
+    no copy, pad or transpose kernel, no memcpy or memset."""
+    tag = "gmm_wgmma" if x.dtype == torch.bfloat16 else "gmm_tile"
+    names = build.graph_kernels(lambda: gmm.moe_gmm_bwd(x, w, dy))
+    check(len(names) == 2 and all(tag in n for n in names),
+          f"moe_gmm_bwd {x.dtype} launched {names}")
+    return [demangle(names)[n].split("(")[0] for n in names]
+
+
+def _gmm_bwd_against_copies(x, w, dy, got) -> dict:
+    """``moe_gmm_bwd``'s bits against the forward kernel on explicit
+    transposed and padded copies (the earlier design), and that path's
+    device time."""
+    copies = _gmm_bwd_on_copies(x, w, dy)
+    out = {"copies_bits_equal": all(torch.equal(a, b)
+                                    for a, b in zip(got, copies)),
+           "copies_max_diff": _abs_err(got, copies),
+           "copies_ms": time_ms(lambda: _gmm_bwd_on_copies(x, w, dy),
+                                iters=10, lead_cycles=LEAD_CYCLES)}
+    del copies
+    return out
+
+
+def step_bits_phase(device) -> dict:
+    """``STEP_BITS_STEPS`` AdamW steps of granite-moe-3b-a800m at full
+    width cut to 2 layers (bf16 compute, float32 parameters), as
+    ``launch.train`` takes them (seed-0 model, the synthetic pipeline at
+    4 x 1024 tokens, ``make_train_step`` in ``train_step.deterministic``):
+    each step's loss and gradient norm and every parameter after the last
+    step, on the host. Run once before every other phase and once after
+    them, the two must agree bit for bit: a training step's bits may not
+    follow what the process ran before (F9 showed after the first step)."""
+    from repro_torch.train import data as data_mod
+    cfg = served_config(TRAIN_ARCH, num_layers=2)
+    model = tf.init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                          device, trainable=True)
+    ostate = opt.init_opt_state(dict(model.named_parameters()))
+    pipe = data_mod.TokenPipeline(data_mod.DataConfig(
+        vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    step = steps.make_train_step(cfg, opt.AdamWConfig(
+        total_steps=STEP_BITS_STEPS))
+    losses, norms = [], []
+    with steps.deterministic():
+        for i in range(STEP_BITS_STEPS):
+            model, ostate, metrics = step(model, ostate, pipe.batch_at(i))
+            losses.append(metrics["loss"].cpu())
+            norms.append(metrics["grad_norm"].cpu())
+    out = {"losses": torch.stack(losses), "norms": torch.stack(norms),
+           "params": {n: p.detach().cpu()
+                      for n, p in model.named_parameters()}}
+    del model, ostate
+    free_memory()
+    return out
+
+
+def same_step_bits(early: dict, late: dict) -> dict:
+    differ = [n for n, p in early["params"].items()
+              if not torch.equal(p, late["params"][n])]
+    out = {"steps": STEP_BITS_STEPS, "parameters": len(early["params"]),
+           "differing": differ,
+           "losses_equal": bool(torch.equal(early["losses"],
+                                            late["losses"])),
+           "norms_equal": bool(torch.equal(early["norms"], late["norms"]))}
+    print(f"training step bits (granite 2 of 32 layers, bf16 compute, "
+          f"{STEP_BITS_STEPS} AdamW steps of 4x1024), before every other "
+          f"phase against after them: losses "
+          f"{early['losses'].tolist()} equal {out['losses_equal']}; "
+          f"gradient norms {early['norms'].tolist()} equal "
+          f"{out['norms_equal']}; {len(differ)} of {out['parameters']} "
+          f"parameters differ after the last step {differ[:8]}")
+    check(out["losses_equal"] and out["norms_equal"] and not differ,
+          "a training step's bits follow the process's history")
+    return out
+
+
 def bwd_kernel_phase(device) -> dict:
     """Each backward kernel against its plain version at the training
     shapes (``ref.rmsnorm_bwd``, ``ref.attention_bwd``,
@@ -1801,7 +1925,10 @@ def bwd_kernel_phase(device) -> dict:
     2e-2 relative to the largest entry, a second launch bit for bit the
     first (no atomics), timed beside the plain version and the library's
     backward (``F.rms_norm``'s, SDPA's, ``torch.bmm``'s, by one
-    ``torch.autograd.grad`` call)."""
+    ``torch.autograd.grad`` call). ``moe_gmm_bwd`` also launches its two
+    GEMM kernels and nothing else (``gmm_bwd_kernels``), and is compared
+    bit for bit with, and timed beside, the forward kernel on transposed,
+    padded copies."""
     cfg = get_config(TRAIN_ARCH)
     d, H, KV, D = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                    cfg.resolved_head_dim)
@@ -1813,7 +1940,8 @@ def bwd_kernel_phase(device) -> dict:
         scale = 1 + 0.1 * _randn((d,), torch.float32, device, 2)
         dy = _randn((R, d), dt, device, 3)
         got = rms.rmsnorm_bwd(x, scale, dy)
-        err = _rel_err(got, ref.rmsnorm_bwd(x, scale, dy))
+        want = ref.rmsnorm_bwd(x, scale, dy)
+        err, aerr = _rel_err(got, want), _abs_err(got, want)
         again = rms.rmsnorm_bwd(x, scale, dy)
         check(err <= BWD_TOL[dt] and all(torch.equal(a, b) for a, b in
                                          zip(got, again)),
@@ -1825,9 +1953,9 @@ def bwd_kernel_phase(device) -> dict:
                                     (x, scale.to(dt)), dy), iters=20)
         bound, by = _bound(10.0 * R * d, 3 * R * d * size + 8 * d, dt)
         label = f"{R}x{d} {name}"
-        rows[("rmsnorm_bwd", label)] = _row("rmsnorm_bwd", label, err, t,
-                                            bound, by)
-        del x, dy, got, again
+        rows[("rmsnorm_bwd", label)] = _row("rmsnorm_bwd", label, aerr, t,
+                                            bound, by, rel=err)
+        del x, dy, got, want, again
         for B, S, h, kv, hd, W in ((TRAIN_BATCH, TRAIN_SEQ, H, KV, D, None),
                                    (1, 4096, 32, 8, 80, 4096)):
             q = _randn((B, S, h, hd), dt, device, 4)
@@ -1837,7 +1965,7 @@ def bwd_kernel_phase(device) -> dict:
             out, lse = fa._forward(q, k, v, True, W, 0, True)
             got = fa.flash_attention_bwd(q, k, v, out, lse, do, window=W)
             want = ref.attention_bwd(q, k, v, out, do, window=W)
-            err = _rel_err(got, want)
+            err, aerr = _rel_err(got, want), _abs_err(got, want)
             again = fa.flash_attention_bwd(q, k, v, out, lse, do, window=W)
             check(err <= BWD_TOL[dt] and all(torch.equal(a, b) for a, b in
                                              zip(got, again)),
@@ -1871,7 +1999,7 @@ def bwd_kernel_phase(device) -> dict:
             label = f"B={B} S={S} {h}/{kv}x{hd}" + \
                 (f" window {W}" if W else "") + f" {name}"
             rows[("flash_attention_bwd", label)] = _row(
-                "flash_attention_bwd", label, err, t, bound, by)
+                "flash_attention_bwd", label, aerr, t, bound, by, rel=err)
             del q, k, v, do, out, lse
             torch.cuda.empty_cache()
         E, C, f = cfg.num_experts, TRAIN_BATCH * TRAIN_SEQ * cfg.top_k * \
@@ -1882,11 +2010,21 @@ def bwd_kernel_phase(device) -> dict:
             w = (_randn((E, a, b), torch.float32, device, 9) / a ** 0.5).to(dt)
             dy = _randn((E, C, b), dt, device, 10)
             got = gmm.moe_gmm_bwd(x, w, dy)
-            err = _rel_err(got, ref.moe_gmm_bwd(x, w, dy))
+            want = ref.moe_gmm_bwd(x, w, dy)
+            err, aerr = _rel_err(got, want), _abs_err(got, want)
+            del want
             again = gmm.moe_gmm_bwd(x, w, dy)
             check(err <= BWD_TOL[dt] and all(torch.equal(p, r) for p, r in
                                              zip(got, again)),
                   f"moe_gmm_bwd E={E} C={C} {a}->{b} {dt}: rel err {err}")
+            extra = _gmm_bwd_against_copies(x, w, dy, got)
+            extra["kernels"] = gmm_bwd_kernels(x, w, dy)
+            print(f"moe_gmm_bwd E={E} C={C} {a}->{b} {name}: one call "
+                  f"launches {extra['kernels']} and nothing else; dx, dw bit "
+                  f"for bit the forward kernel's on transposed, padded "
+                  f"copies: {extra['copies_bits_equal']} (max|diff| "
+                  f"{extra['copies_max_diff']:.3e}); that path "
+                  f"{extra['copies_ms']:.4f} ms")
             t = _in_turns(lambda: gmm.moe_gmm_bwd(x, w, dy),
                           lambda: ref.moe_gmm_bwd(x, w, dy),
                           _library_grad(torch.bmm, (x, w), dy), iters=10)
@@ -1895,8 +2033,8 @@ def bwd_kernel_phase(device) -> dict:
                                (2 * x.numel() + 2 * w.numel() + dy.numel())
                                * size, dt)
             label = f"E={E} C={C} {a}->{b} {name}"
-            rows[("moe_gmm_bwd", label)] = _row("moe_gmm_bwd", label, err, t,
-                                                bound, by)
+            rows[("moe_gmm_bwd", label)] = _row("moe_gmm_bwd", label, aerr,
+                                                t, bound, by, rel=err) | extra
             del x, w, dy, got, again
     torch.cuda.empty_cache()
     return rows
@@ -2173,6 +2311,9 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     build_phase()
+    # a training step's bits, before every other phase (compared with the
+    # same step after them, below)
+    early_bits = step_bits_phase(device)
     rows = kernel_phase(device)
     head_row = head_phase(device)
     grouped = grouped_kernel_phase(device)
@@ -2240,6 +2381,8 @@ def main() -> int:
     # against the plain path, the published config for TRAIN_STEPS steps
     # through launch.train (the last traced), and xlstm-125m's resume
     bwd_rows = bwd_kernel_phase(device)
+    same_step_bits(early_bits, step_bits_phase(device))
+    del early_bits
     train_parity_phase(device)
     training = train_phase(device)
     resume_phase(device)

@@ -8,8 +8,9 @@ The library lives in ``build/repro_torch/`` under the repository root,
 keyed by a hash of the source and the flags, so a changed source is
 rebuilt. Nothing runs at import time. ``resources`` reads ptxas's
 registers, spills and shared memory of each kernel from a build's log,
-and ``sass_counts`` counts an instruction (the tensor cores' ``HGMMA``)
-in each kernel of a built library. The helpers at the end are the
+``sass_counts`` counts an instruction (the tensor cores' ``HGMMA``)
+in each kernel of a built library, and ``graph_kernels`` lists the
+kernels a call launches. The helpers at the end are the
 checks every wrapper makes before it hands raw pointers to a kernel.
 """
 from __future__ import annotations
@@ -155,6 +156,47 @@ def sass_counts(name: str, opcode: str = "HGMMA") -> Dict[str, int]:
     proc = subprocess.run([_tool("cuobjdump"), "-sass", str(build(name))],
                           capture_output=True, text=True, check=True)
     return count_opcodes(proc.stdout, opcode)
+
+
+def graph_kernels(fn) -> List[str]:
+    """What one call of ``fn`` puts on the current stream, captured into a
+    CUDA graph and not run: the name of each kernel (mangled), or the kind
+    of each other node ("memcpy", "memset", ...), in the graph's node
+    order. ``fn`` must have run once before, uncaptured. Read through
+    libcuda's graph API, so a copy or a transpose before a kernel cannot
+    hide, as a kernel can be missing from a profiler's short trace."""
+    try:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:   # a PyTorch that keeps the graph anyway
+        g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    kinds = {1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                 # not CU_GRAPH_NODE_TYPE_KERNEL
+            out.append(kinds.get(kind.value, f"node type {kind.value}"))
+            continue
+        params = (ctypes.c_void_p * 32)()   # CUDA_KERNEL_NODE_PARAMS: func first
+        name = ctypes.c_char_p()
+        get = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
+            cu.cuGraphKernelNodeGetParams
+        ok = get(ctypes.c_void_p(node), params) == 0 and \
+            hasattr(cu, "cuFuncGetName") and \
+            cu.cuFuncGetName(ctypes.byref(name),
+                             ctypes.c_void_p(params[0])) == 0
+        out.append(name.value.decode() if ok and name.value else "kernel")
+    del g
+    return out
 
 
 def dtype_code(*tensors) -> int:

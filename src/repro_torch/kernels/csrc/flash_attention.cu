@@ -64,6 +64,7 @@
 // 32 KB of V, 161 KB in all. P.V is two m64n128k16 products, one per half
 // of V.
 #include "common.cuh"
+#include "flash_tc.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -233,70 +234,10 @@ __global__ void __launch_bounds__(kThreads)
 // -- bfloat16: TMA ring + wgmma -------------------------------------------
 
 namespace hp = repro_torch::hopper;
-
-template <int D>
-struct TcTile {
-  static constexpr int kCols = D >= 64 ? 64 : D;   // elements per row
-  static constexpr int kRow = kCols * 2;           // bytes per swizzled row
-  static constexpr int kBlocks = (D + kCols - 1) / kCols;
-  static constexpr int kBlock = 64 * kRow;         // 64 rows of one block
-  static constexpr int kOperand = kBlocks * kBlock;  // a 64-row q/k/v tile
-  static constexpr int kStages = D <= 64 ? 3 : 2;
-  static constexpr int kSmem = kOperand * (1 + 2 * kStages) + 1024;
-};
-
-// S = Q.K^T of one 64 x 64 tile: D/16 wgmma, both operands K-major in
-// shared memory; started and committed, not waited for.
-template <int D>
-__device__ __forceinline__ void scores_async(float (&sc)[32],
-                                             const uint8_t* q_s,
-                                             const uint8_t* k_st) {
-  using L = TcTile<D>;
-  hp::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int off =
-        (kk * 16 / L::kCols) * L::kBlock + (kk * 16 % L::kCols) * 2;
-    hp::Wgmma<64>::ss<0, 0>(
-        sc, hp::make_desc(q_s + off, 16, 8 * L::kRow, L::kRow),
-        hp::make_desc(k_st + off, 16, 8 * L::kRow, L::kRow), kk > 0);
-  }
-  hp::wgmma_commit();
-}
-
-// O += P.V over one 64-key tile: P from registers, V the MN-major B
-// operand in shared memory; started and committed, not waited for.
-// D 256 is two n128 products over the two halves of V (column blocks 0-1
-// and 2-3): the accumulator layout of the halves is that of one n256
-// product, so o stays one array.
-template <int D>
-__device__ __forceinline__ void pv_async(float (&o)[D / 2],
-                                         const uint32_t (&pa)[4][4],
-                                         const uint8_t* v_st) {
-  using L = TcTile<D>;
-  constexpr int kN = D > 128 ? 128 : D;   // columns of one product
-  hp::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kBk / 16; ++kk)
-#pragma unroll
-    for (int half = 0; half < D / kN; ++half)
-      hp::Wgmma<kN>::template rs<1>(
-          *reinterpret_cast<float(*)[kN / 2]>(o + half * kN / 2), pa[kk],
-          hp::make_desc(v_st + half * (kN / L::kCols) * L::kBlock +
-                            kk * 16 * L::kRow,
-                        L::kBlock, 8 * L::kRow, L::kRow),
-          1);
-  hp::wgmma_commit();
-}
-
-// 2^x by the SFU's ex2.approx (relative error ~2^-22, subnormal results
-// flushed to zero), below what rounding P to bf16 loses; exp2f adds a
-// range fix-up around the same instruction.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using repro_torch::flash_tc::TcTile;
+using repro_torch::flash_tc::fast_exp2;
+using repro_torch::flash_tc::pv_async;
+using repro_torch::flash_tc::scores_async;
 
 struct Band {
   int Sk, causal, window;
@@ -503,29 +444,20 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   using L = TcTile<D>;
   if (Sk == 0)   // no key: every row is zero, as the band loop leaves it
     return (int)cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, stream);
-  // (B, S, heads, D) as (D, heads, S, B), innermost first, in boxes of
-  // one 64-row column block of one head
+  // the q tile and kStages stages of a K and a V tile, 1024-aligned
+  constexpr int kSmem = L::kOperand * (1 + 2 * L::kStages) + 1024;
   CUtensorMap qmap, kmap, vmap;
-  const cuuint64_t qd[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Sq,
-                            (cuuint64_t)B};
-  const cuuint64_t qs[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                            (cuuint64_t)Sq * H * D * 2};
-  const cuuint64_t kd[4] = {(cuuint64_t)D, (cuuint64_t)KV, (cuuint64_t)Sk,
-                            (cuuint64_t)B};
-  const cuuint64_t ks[3] = {(cuuint64_t)D * 2, (cuuint64_t)KV * D * 2,
-                            (cuuint64_t)Sk * KV * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)L::kCols, 1, (cuuint32_t)kBq, 1};
-  if (!hp::encode_bf16(&qmap, q, 4, qd, qs, box) ||
-      !hp::encode_bf16(&kmap, k, 4, kd, ks, box) ||
-      !hp::encode_bf16(&vmap, v, 4, kd, ks, box))
+  if (!repro_torch::flash_tc::tile_map(&qmap, q, B, Sq, H, D) ||
+      !repro_torch::flash_tc::tile_map(&kmap, k, B, Sk, KV, D) ||
+      !repro_torch::flash_tc::tile_map(&vmap, v, B, Sk, KV, D))
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kSmem);
+      kSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((unsigned int)((Sq + kBq - 1) / kBq), (unsigned int)H,
                   (unsigned int)B);
-  flash_fwd_wgmma<D><<<grid, 160, L::kSmem, stream>>>(
+  flash_fwd_wgmma<D><<<grid, 160, kSmem, stream>>>(
       qmap, kmap, vmap, (__nv_bfloat16*)out, lse, Sq, Sk, H, KV, causal,
       window, q_offset, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();

@@ -20,8 +20,11 @@ each row's log-sum-exp (float32 (B, H, Sq); serving passes a null
 pointer and writes none), and the backward is ``flash_attention_bwd``,
 two hand-written kernels in ``csrc/flash_attention_bwd.cu`` (dQ with
 each row's Delta = rowsum(dO * O), then dK and dV, a kv head's group
-summed in one block in a fixed order; no atomics). On the CPU the
-backward is the plain ``ref.attention_bwd``.
+summed in one block in a fixed order; no atomics). In bfloat16 at head
+dims up to 128 both run on the tensor cores (``wgmma``, tiles by TMA)
+and round P and dS to bfloat16 before their products; in float32, and
+at D 256, on the CUDA cores. On the CPU the backward is the plain
+``ref.attention_bwd``.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.

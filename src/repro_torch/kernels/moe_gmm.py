@@ -10,14 +10,15 @@ float32 accumulators) with its tiles brought by TMA, so it needs an
 cores would round float32 operands to TF32.
 
 Under autograd (a grad-enabled call where x or w requires grad) the call
-goes through ``MoeGmmFn``, whose backward ``moe_gmm_bwd`` runs the same
-kernel twice: ``dx = moe_gmm(dy, w^T)`` and ``dw = moe_gmm(x^T, dy)``,
-with the transposed operands made contiguous. For dw the contracted
-dimension is the capacity C, which TMA needs in whole 16-byte units, so
-x and dy get zero rows up to a multiple of 8 for that launch (zero rows
-add zeros). dw comes out in x's type, as the JAX graph's bf16 product
-does before its cast to the float32 master weight. On the CPU the
-backward is the plain ``ref.moe_gmm_bwd``.
+goes through ``MoeGmmFn``, whose backward ``moe_gmm_bwd`` computes ``dx
+= dy w^T`` and ``dw = x^T dy`` in two launches of the same kernel with
+other operand majors (``moe_gmm_bwd`` in the source), reading x, w and
+dy in place: w as a K-major B operand for dx, x as an MN-major A operand
+for dw, whose contracted capacity C may be any size (its edge arrives as
+zeros), so no copy, transpose or padding is made, in either type. dw
+comes out in x's type, as the JAX graph's bf16 product does before its
+cast to the float32 master weight. On the CPU the backward is the plain
+``ref.moe_gmm_bwd``.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
@@ -27,11 +28,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
 
 SIGNATURES = {"moe_gmm_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
+              [ctypes.c_void_p],
+              "moe_gmm_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
               [ctypes.c_void_p]}
 
 
@@ -50,8 +52,10 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x[e] @ w[e]: the plain version on the CPU, one launch on the card."""
+def _check(x: torch.Tensor, w: torch.Tensor) -> int:
+    """What both kernels take: x (E, C, d) and w (E, d, f) on one device,
+    both float32 or both bfloat16, d and f multiples of 8 on the card.
+    Returns the kernels' type code."""
     code = build.dtype_code(x, w)
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
             or w.shape[1] != x.shape[2]:
@@ -59,15 +63,22 @@ def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
-    if x.device.type == "cpu":
-        return ref.moe_gmm(x, w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"moe_gmm runs on cpu or cuda, not {x.device}")
-    E, C, d = x.shape
-    f = w.shape[2]
-    if d % 8 or f % 8:
+    d, f = w.shape[1], w.shape[2]
+    if x.device.type == "cuda" and (d % 8 or f % 8):
         raise ValueError(f"the kernel takes d and f in multiples of 8 "
                          f"(16-byte rows for TMA); got d {d}, f {f}")
+    return code
+
+
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x[e] @ w[e]: the plain version on the CPU, one launch on the card."""
+    code = _check(x, w)
+    if x.device.type == "cpu":
+        return ref.moe_gmm(x, w)
+    E, C, d = x.shape
+    f = w.shape[2]
     build.check_launchable(x, w)
     out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     build.launch(build.load("moe_gmm", SIGNATURES).moe_gmm_fwd, x.device,
@@ -78,19 +89,24 @@ def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     """(dx in x's type, dw in w's type) of ``moe_gmm`` for the output
-    gradient dy (E, C, f): on the card two launches of the kernel,
-    counted by ``moe_gmm_bwd.launches``."""
-    if dy.shape != (x.shape[0], x.shape[1], w.shape[2]) or \
-            dy.dtype != x.dtype or dy.device != x.device:
+    gradient dy (E, C, f): on the card two launches, counted by
+    ``moe_gmm_bwd.launches``, with no copy of x, w or dy."""
+    code = _check(x, w)
+    E, C, d = x.shape
+    f = w.shape[2]
+    if dy.shape != (E, C, f) or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} does not fit x "
                          f"{tuple(x.shape)} and w {tuple(w.shape)}")
     if x.device.type == "cpu":
         return ref.moe_gmm_bwd(x, w, dy)
     dy = dy.contiguous()
-    dx = _product(dy, w.transpose(1, 2).contiguous())
-    pad = -x.shape[1] % 8
-    xt = F.pad(x, (0, 0, 0, pad)).transpose(1, 2).contiguous()  # (E, d, Cp)
-    dw = _product(xt, F.pad(dy, (0, 0, 0, pad)))
+    build.check_launchable(x, w, dy)
+    dx = torch.empty_like(x)
+    dw = torch.zeros_like(w) if C == 0 else torch.empty_like(w)
+    build.launch(build.load("moe_gmm", SIGNATURES).moe_gmm_bwd, x.device,
+                 x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                 dw.data_ptr(), code, E, C, d, f,
+                 what=f"moe_gmm_bwd at x {tuple(x.shape)}, w {tuple(w.shape)}")
     moe_gmm_bwd.launches += 2
     return dx, dw
 

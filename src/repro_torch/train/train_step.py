@@ -26,17 +26,18 @@ from repro_torch.train import optimizer as opt
 
 @contextlib.contextmanager
 def deterministic():
-    """PyTorch's deterministic algorithms on (an operation that has none
-    warns instead of raising: the mLSTM's float ``cumsum`` along a
-    non-last axis, which PyTorch computes without atomics), without
-    filling fresh tensors with NaN; the previous settings restored on
+    """PyTorch's deterministic algorithms on, an operation that has none
+    raising instead of changing bits quietly, without filling fresh
+    tensors with NaN (no operation of a training step reads memory it
+    never wrote: ``benchmarks/torch_step_bits.py`` runs the step with the
+    fill on and gets the same bits); the previous settings restored on
     exit. cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the
     environment before its first handle (``launch/train.py`` sets it)."""
     was = (torch.are_deterministic_algorithms_enabled(),
            torch.is_deterministic_algorithms_warn_only_enabled())
     det = getattr(torch.utils, "deterministic", None)
     fill = getattr(det, "fill_uninitialized_memory", None)
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.use_deterministic_algorithms(True, warn_only=False)
     if fill is not None:
         det.fill_uninitialized_memory = False
     try:

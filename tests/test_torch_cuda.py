@@ -23,6 +23,7 @@ from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import scorer_head as sh  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.train import train_step as steps  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -463,8 +464,11 @@ def test_moe_gmm_kernel_matches_plain_version(cuda, name, E, C, d, f):
 
 
 @pytest.mark.parametrize("name,tag,n_bf16,opcode", [
-    ("moe_gmm", "gmm_wgmma", 1, "HGMMA"),
+    # the forward's product and the backward's two (dx <0, 0>, dw <1, 1>)
+    ("moe_gmm", "gmm_wgmma", 3, "HGMMA"),
     ("flash_attention", "flash_fwd_wgmma", 6, "HGMMA"),
+    # dQ and dK/dV at head dims 16, 32, 64, 80, 128 (256: CUDA cores)
+    ("flash_attention_bwd", "_wgmma", 10, "HGMMA"),
     # decode: 6 head dims x 1-4 m16 tiles of query heads, mma.sync
     ("decode_attention", "decode_bf16", 24, "HMMA")])
 def test_bf16_kernels_use_the_tensor_cores(cuda, name, tag, n_bf16, opcode):
@@ -747,8 +751,11 @@ def test_rmsnorm_bwd_kernel_matches_plain_version(cuda, name, rows, d):
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
-# (B, Sq, Sk, H, KV, D, window, q_offset): groups of 1, 2 and 3, windows,
-# q_offset and suffix-aligned q, every head dim around the tiles
+# (B, Sq, Sk, H, KV, D, window, q_offset): groups of 1, 2, 3 and 4,
+# windows whose edge falls inside a tile, q_offset and suffix-aligned q,
+# lengths that are not multiples of the 64-row tiles, B 2, every head dim
+# around the tiles (16-128 on the bf16 tensor-core kernels, 256 on the
+# CUDA-core ones)
 FLASH_BWD = [
     (2, 70, 70, 4, 2, 16, 32, 0),
     (1, 100, 100, 3, 1, 64, 33, 0),
@@ -757,6 +764,11 @@ FLASH_BWD = [
     (2, 65, 300, 6, 2, 80, 129, 100),
     (1, 257, 257, 6, 2, 256, None, 0),
     (1, 129, 129, 2, 1, 256, 100, 0),
+    (1, 77, 141, 8, 2, 64, None, 60),         # ragged q and k, q_offset
+    (2, 190, 190, 4, 4, 64, 70, 0),           # group 1, window edge in a tile
+    (1, 150, 150, 8, 2, 128, 90, 0),          # group 4 at D 128
+    (1, 257, 257, 4, 1, 80, None, 0),         # D 80 at S 257, group 4
+    (2, 200, 333, 6, 2, 32, 100, 133),        # B 2, window and q_offset
     (4, 1024, 1024, 24, 8, 64, None, 0),      # granite's training shape
     (1, 4096, 4096, 32, 8, 80, 4096, 0),      # h2o's, one row
 ]
@@ -795,15 +807,36 @@ def test_flash_attention_bwd_kernel_matches_plain_version(
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (2, 300, 24, 8, 64, None), (3, 257, 32, 8, 80, 100),
+    (2, 130, 4, 4, 128, None)])
+def test_flash_attention_bwd_bits_do_not_depend_on_the_batch(
+        cuda, B, S, H, KV, D, window):
+    """In bf16 each row of a batch gets the bits it gets alone: dq, dk and
+    dv of batch row i (a kv head's group summed in one block) equal those
+    of a batch of 1 made of that row."""
+    dtype = torch.bfloat16
+    q = _randn((B, S, H, D), dtype, cuda, 1)
+    k = _randn((B, S, KV, D), dtype, cuda, 2)
+    v = _randn((B, S, KV, D), dtype, cuda, 3)
+    dout = _randn((B, S, H, D), dtype, cuda, 4)
+    out, lse = fa._forward(q, k, v, True, window, 0, True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
+    for i in range(B):
+        one = [t[i:i + 1].contiguous() for t in (q, k, v, out, lse, dout)]
+        alone = fa.flash_attention_bwd(*one, window=window)
+        for g, a, n in zip(got, alone, ("dq", "dk", "dv")):
+            assert torch.equal(g[i:i + 1], a), f"{n} of batch row {i}"
+
+
 @pytest.mark.parametrize("name", BWD_TOL)
 @pytest.mark.parametrize("E,C,d,f", [(40, 1024, 1536, 512),
                                      (40, 1024, 512, 1536),
                                      (40, 275, 1536, 512), (3, 13, 40, 24),
                                      (8, 1, 64, 32)])
 def test_moe_gmm_bwd_matches_plain_version(cuda, name, E, C, d, f):
-    """dx and dw through the forward kernel (C not a multiple of 8 padded
-    with zero rows for dw), within tolerance of ``ref.moe_gmm_bwd``; the
-    same bits again."""
+    """dx and dw (the kernel reading x, w and dy in place, C of any size)
+    within tolerance of ``ref.moe_gmm_bwd``; the same bits again."""
     dtype = LM_DTYPES[name][0]
     x = _randn((E, C, d), dtype, cuda, 7)
     w = (_randn((E, d, f), torch.float32, cuda, 8) / d ** 0.5).to(dtype)
@@ -817,6 +850,81 @@ def test_moe_gmm_bwd_matches_plain_version(cuda, name, E, C, d, f):
     _close(dw, want[1], BWD_TOL[name], "dw")
     dx2, dw2 = gmm.moe_gmm_bwd(x, w, dy)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+def _gmm_bwd_on_copies(x, w, dy):
+    """dx and dw by the forward kernel on explicit transposed copies, C
+    padded with zero rows to a multiple of 8 for dw: the backward before
+    it read its operands in place."""
+    pad = -x.shape[1] % 8
+    xt = torch.nn.functional.pad(x, (0, 0, 0, pad)).transpose(1, 2)
+    return (gmm._product(dy, w.transpose(1, 2).contiguous()),
+            gmm._product(xt.contiguous(),
+                         torch.nn.functional.pad(dy, (0, 0, 0, pad))))
+
+
+@pytest.mark.parametrize("name", BWD_TOL)
+@pytest.mark.parametrize("E,C,d,f", [(40, 1024, 1536, 512),
+                                     (40, 1024, 512, 1536),
+                                     (40, 275, 1536, 512), (3, 13, 40, 24),
+                                     (8, 1, 64, 32), (2, 200, 136, 264)])
+def test_moe_gmm_bwd_reads_in_place(cuda, name, E, C, d, f):
+    """The backward launches its two GEMM kernels and nothing else (no
+    copy, pad or transpose kernel: the nodes of one call captured into a
+    CUDA graph), and its dx
+    and dw equal, bit for bit, the forward kernel's on explicit transposed
+    and padded copies: the same sums over K in the same order."""
+    dtype = LM_DTYPES[name][0]
+    tag = "gmm_wgmma" if dtype == torch.bfloat16 else "gmm_tile"
+    x = _randn((E, C, d), dtype, cuda, 7)
+    w = (_randn((E, d, f), torch.float32, cuda, 8) / d ** 0.5).to(dtype)
+    dy = _randn((E, C, f), dtype, cuda, 9)
+    dx, dw = gmm.moe_gmm_bwd(x, w, dy)   # builds the kernel uncaptured
+    names = build.graph_kernels(lambda: gmm.moe_gmm_bwd(x, w, dy))
+    assert len(names) == 2 and all(tag in n for n in names), names
+    cx, cw = _gmm_bwd_on_copies(x, w, dy)
+    assert torch.equal(dx, cx) and torch.equal(dw, cw)
+
+
+def test_training_step_bits_do_not_follow_history(cuda):
+    """Three AdamW steps of granite-moe-3b-a800m's smoke config in bf16
+    compute, as ``launch.train`` takes them (the forward and backward
+    kernels, the MoE dispatch, the chunked cross-entropy, remat, AdamW),
+    give every loss, gradient norm and parameter the same bits fresh and
+    after other work in the same process: allocations of odd sizes kept
+    across them, matmuls of other shapes, a step at another batch."""
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+
+    def run(n_steps=3, batch=2, seq=128):
+        model = tf.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                              cuda, trainable=True)
+        ostate = opt.init_opt_state(dict(model.named_parameters()))
+        pipe = data_mod.TokenPipeline(data_mod.DataConfig(
+            vocab_size=cfg.vocab_size, batch=batch, seq_len=seq))
+        step = steps.make_train_step(cfg, opt.AdamWConfig(
+            total_steps=n_steps))
+        seen = []
+        with steps.deterministic():
+            for i in range(n_steps):
+                model, ostate, m = step(model, ostate, pipe.batch_at(i))
+                seen.append((float(m["loss"]), float(m["grad_norm"])))
+        return seen, {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+
+    fresh = run()
+    rng = np.random.default_rng(0)
+    kept = [torch.empty(int(n), dtype=torch.uint8, device=cuda)
+            for n in rng.integers(1, 5_000_000, 40)][::2]
+    a = _randn((37, 333), torch.bfloat16, cuda, 5)
+    (a @ a.T).sum().item()
+    run(n_steps=1, batch=1, seq=64)
+    later = run()
+    kept.clear()   # the held allocations are let go
+    assert fresh[0] == later[0]
+    assert all(torch.equal(fresh[1][n], later[1][n]) for n in fresh[1]), \
+        [n for n in fresh[1] if not torch.equal(fresh[1][n], later[1][n])]
 
 
 def _grads_of(fn, inputs):
