@@ -3,18 +3,24 @@
     PYTHONPATH=src python -m benchmarks.torch_kernel_variant KERNEL OTHER.cu
     PYTHONPATH=src python -m benchmarks.torch_kernel_variant \
         decode_attention OTHER.cu --splits 64,128,256
+    PYTHONPATH=src python -m benchmarks.torch_kernel_variant \
+        rmsnorm_bwd A.cu B.cu ...
 
-KERNEL is ``conv_scorer``, ``rmsnorm``, ``decode_attention`` or
-``scorer_head``; OTHER.cu is a source with the same C function as
-``src/repro_torch/kernels/csrc/KERNEL.cu`` (an older version taken from
-git, or a copy with other constants) in a directory that ``.gitignore``
-lists. It is built with the port's nvcc flags, with ``csrc/`` on the
+KERNEL is ``conv_scorer``, ``rmsnorm``, ``rmsnorm_bwd``,
+``decode_attention`` or ``scorer_head``; OTHER.cu is a source with the
+same C functions as ``src/repro_torch/kernels/csrc/KERNEL.cu``
+(``rmsnorm.cu`` for both norms; an older version taken from git, or a
+copy with other constants) in a directory that ``.gitignore`` lists;
+several sources are built in parallel and each is compared in turn. It
+is built with the port's nvcc flags, with ``csrc/`` on the
 include path, and at the shapes the main paths give the kernel (every
 conv layer of the reduced operator family at N 1024; the norms of
 h2o-danube-1.8b, granite-moe-3b-a800m and granite-20b; the decode ticks
 of h2o-danube-1.8b, granite-moe-3b-a800m, llama4-maverick-400b-a17b and
 granite-20b, 8 slots over 4096 ring rows, in bf16 and float32; the
-operator family's dense and head layers at M 1, 20, 32, 64 and 1024)
+operator family's dense and head layers at M 1, 20, 32, 64 and 1024;
+rmsnorm's backward over 4096 rows of the zoo's widths, in both types,
+every variant in turns: port, A, B, ..., B, A, port)
 both builds run on the same inputs: whether their outputs are equal bit
 for bit, their largest difference, and each one's device time, in turns
 (port, other, other, port), beside the library call that computes the
@@ -30,6 +36,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -50,14 +57,19 @@ NORMS = [(2048, 2560, torch.bfloat16), (8, 2560, torch.bfloat16),
          (2048, 2560, torch.float32), (2048, 1536, torch.bfloat16),
          (8, 1536, torch.bfloat16), (2048, 6144, torch.bfloat16),
          (2048, 6144, torch.float32)]
+# (rows, D, type) of the trained norms' backward: granite-moe-3b-a800m's
+# 4096 tokens of 1536, xlstm-125m's 768, h2o-danube-1.8b's 2560,
+# jamba-v0.1-52b's 4096
+NORMS_BWD = [(4096, d, dt) for d in (1536, 768, 2560, 4096)
+             for dt in (torch.bfloat16, torch.float32)]
 # (H, KV, D, model) of the served decode ticks, B 8 over 4096 ring rows
 DECODES = [(32, 8, 80, "h2o-danube-1.8b"), (24, 8, 64, "granite-moe-3b"),
            (40, 8, 128, "llama4-maverick"), (48, 1, 128, "granite-20b")]
 # (feat, dense) of the operator family's dense and head layers
 HEADS = [(392, 16), (784, 32), (256, 32), (512, 64)]
 HEAD_ROWS = (1, 20, 32, 64, 1024)
-MODULES = {"conv_scorer": cs, "rmsnorm": rms, "decode_attention": da,
-           "scorer_head": sh}
+MODULES = {"conv_scorer": cs, "rmsnorm": rms, "rmsnorm_bwd": rms,
+           "decode_attention": da, "scorer_head": sh}
 # the first decode design's C interface: the same arguments without the
 # split, which it chooses itself (decode_attention_split_rows)
 OLD_DECODE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
@@ -66,24 +78,29 @@ OLD_DECODE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
 
 def load_variant(kernel: str, source: Path):
     """The C function of ``source``, built as ``kernel``'s library (for
-    decode attention the library itself: its interface depends on its
-    design)."""
-    out = build.BUILD_DIR / f"variant_{source.stem}.so"
+    decode attention and rmsnorm's backward the library itself: the one's
+    interface depends on its design, the other has two functions)."""
+    out = build.BUILD_DIR / f"variant_{kernel}_{source.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build._tool("nvcc"), *build.NVCC_FLAGS,
                            f"-I{build.CSRC}", "-o", str(out), str(source)],
                           check=True, capture_output=True, text=True)
     for r in build.resources(proc.stdout + proc.stderr):
-        print(f"ptxas {r['kernel']}: {r['registers']} registers, "
-              f"{r['spill_stores']} B spill stores")
+        if kernel != "rmsnorm_bwd" or "bwd" in r["kernel"]:
+            print(f"ptxas {source.name} {r['kernel']}: {r['registers']} "
+                  f"registers, {r['spill_stores']} B spill stores")
     lib = ctypes.CDLL(str(out))
     if kernel == "decode_attention":
         return lib
-    (name, argtypes), = MODULES[kernel].SIGNATURES.items()
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    sigs = MODULES[kernel].SIGNATURES
+    if kernel.startswith("rmsnorm"):   # one source, both directions
+        wanted = ["rmsnorm_fwd"] if kernel == "rmsnorm" else [
+            "rmsnorm_bwd_partials", "rmsnorm_bwd"]
+        sigs = {k: sigs[k] for k in wanted}
+    for name, argtypes in sigs.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib if kernel == "rmsnorm_bwd" else getattr(lib, name)
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -186,6 +203,55 @@ def norm_cases(fn, name: str) -> bool:
                            in_turns(lambda: rms.rmsnorm(x, scale), other,
                                     lambda: F.rms_norm(x, (d,), lib_w, 1e-6)),
                            name)
+    return same_all
+
+
+def norm_bwd_cases(libs, names) -> bool:
+    """Each variant's backward (its own partial rows) against the port's:
+    dx and dscale bit for bit, and device times, all in turns."""
+    dev = torch.device("cuda")
+    same_all = True
+    for rows, d, dt in NORMS_BWD:
+        g = torch.Generator(device=dev).manual_seed(rows + d)
+        x = (3 * torch.randn(rows, d, generator=g, device=dev)).to(dt)
+        scale = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        dy = torch.randn(rows, d, generator=g, device=dev).to(dt)
+        code = build.dtype_code(x)
+        fns = {"port": lambda: rms.rmsnorm_bwd(x, scale, dy)}
+        for lib, name in zip(libs, names):
+            dx = torch.empty_like(x)
+            ds = torch.empty(d, device=dev)
+            ptrs = (x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                    dx.data_ptr())
+            with torch.cuda.device(dev):
+                need = lib.rmsnorm_bwd_partials(*ptrs, code, rows, d)
+            part = torch.empty((max(need, 0), d), device=dev)
+
+            def other(lib=lib, ptrs=ptrs, part=part, ds=ds, dx=dx, name=name):
+                build.launch(lib.rmsnorm_bwd, dev, *ptrs, part.data_ptr(),
+                             ds.data_ptr(), code, rows, d, 1e-6, what=name)
+                return dx, ds
+            fns[name] = other
+        mine = rms.rmsnorm_bwd(x, scale, dy)
+        outs = {n: [t.clone() for t in fns[n]()] for n in names}
+        order = list(fns) + list(reversed(fns))
+        t = {n: [] for n in fns}
+        for n in order:
+            t[n].append(device_ms(fns[n]))
+        bound = (3 * rows * d * x.element_size() + 8 * d) / 3.35e12 * 1e3
+        port = float(np.mean(t["port"]))
+        total = torch.empty_like(x)
+        copy = device_ms(lambda: torch.add(x, dy, out=total))
+        print(f"rmsnorm_bwd {rows}x{d} {str(dt)[6:]}: port {port:.4f} ms "
+              f"({bound / port:.3f} of the bound {bound:.4f} ms); x + dy, "
+              f"the same bytes, {copy:.4f} ms")
+        for n in names:
+            ms = float(np.mean(t[n]))
+            same = [torch.equal(a, b) for a, b in zip(mine, outs[n])]
+            same_all &= all(same)
+            print(f"  {n}: {ms:.4f} ms ({bound / ms:.3f} of the bound); dx, "
+                  f"dscale bit for bit the port's {same}, dscale max|diff| "
+                  f"{float((mine[1] - outs[n][1]).abs().max()):.3e}")
     return same_all
 
 
@@ -307,7 +373,7 @@ def head_cases(fn, name: str) -> bool:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=sorted(MODULES))
-    ap.add_argument("source", type=Path)
+    ap.add_argument("source", type=Path, nargs="+")
     ap.add_argument("--n", type=int, default=1024,
                     help="images of a conv_scorer call")
     ap.add_argument("--splits", default="",
@@ -317,18 +383,23 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    fn = load_variant(args.kernel, args.source)
-    name = args.source.name
-    if args.kernel == "conv_scorer":
-        same = conv_cases(fn, name, args.n)
-    elif args.kernel == "rmsnorm":
-        same = norm_cases(fn, name)
-    elif args.kernel == "decode_attention":
-        same = decode_cases(fn, name, [int(x) for x in args.splits.split(",")
-                                       if x])
-    else:
-        same = head_cases(fn, name)
-    print(f"every shape equal bit for bit: {same}")
+    with ThreadPoolExecutor(len(args.source)) as pool:
+        fns = list(pool.map(lambda src: load_variant(args.kernel, src),
+                            args.source))
+    names = [src.name for src in args.source]
+    if args.kernel == "rmsnorm_bwd":
+        same = norm_bwd_cases(fns, names)
+    for fn, name in zip(fns, names):
+        if args.kernel == "conv_scorer":
+            same = conv_cases(fn, name, args.n)
+        elif args.kernel == "rmsnorm":
+            same = norm_cases(fn, name)
+        elif args.kernel == "decode_attention":
+            same = decode_cases(fn, name, [int(x) for x in
+                                           args.splits.split(",") if x])
+        elif args.kernel == "scorer_head":
+            same = head_cases(fn, name)
+        print(f"{name}: every shape equal bit for bit: {same}")
     return 0
 
 

@@ -6,7 +6,8 @@
 Builds the port's seven CUDA kernel sources from this checkout,
 all at once, prints each kernel's registers, spills and shared memory
 (and ptxas's notes on serialized wgmma pipelines; flash backward's
-tensor-core kernels at head dims 64 and 80 may not spill), and counts
+tensor-core kernels at head dims 64 and 80 and rmsnorm's backward at
+every K may not spill), and counts
 the tensor-core instructions in the SASS of the four whose bfloat16
 path runs on them (HGMMA in grouped expert matmul, flash attention and
 its backward, HMMA in decode attention); then takes three bf16 AdamW
@@ -43,14 +44,18 @@ and the attention and norm kernels at
 the head shapes and widths of the other accepted zoo configs
 (gemma3-12b's head dim 256, llama4-maverick-400b-a17b's 5 and
 granite-20b's 48 query heads per kv head, granite-20b's 6144 wide norm).
-Then training: the backward kernels (rmsnorm's, flash attention's dQ and
-dK/dV, moe_gmm's dx and dw on its own kernel, read in place: one call
-captured into a CUDA graph holds its two GEMM launches and nothing else)
-against their plain versions at granite-moe-3b-a800m's training shapes
-and h2o-danube-1.8b's head dim 80 over 4096 tokens, each timed beside
-its plain version and the library's backward; the three AdamW steps
-again, bit for bit the first ones; one float32 step of 2 full-width
-granite layers on
+Then training: the backward kernels (rmsnorm's as one cooperative
+launch, also at xlstm-125m's and h2o-danube-1.8b's widths; flash
+attention's dQ and dK/dV; moe_gmm's dx and dw on its own kernel, read in
+place: one call captured into a CUDA graph holds rmsnorm's one launch,
+moe_gmm's two GEMM launches, and nothing else) against their plain
+versions at granite-moe-3b-a800m's training shapes and
+h2o-danube-1.8b's head dim 80 over 4096 tokens, each timed beside its
+plain version and the library's backward, with its share of the bound;
+the three AdamW steps again, bit for bit the first ones; 30 AdamW steps
+of 2 full-width granite layers with wq and wk at their true fan-in, whose
+loss must fall by 0.5 (the learning check); one float32 step of 2
+full-width granite layers on
 the kernel path against the plain path; granite-moe-3b-a800m at its
 published config for 10 AdamW steps of 4 x 1024 tokens through
 ``repro_torch.launch.train`` (the last step traced); and xlstm-125m's
@@ -200,6 +205,14 @@ TRAIN_ARCH = MOE_ARCH
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 10
 TRAIN_GRAD_TOL = 1e-3        # float32 parity of every gradient, relative
 STEP_BITS_STEPS = 3          # steps of the history check (step_bits_phase)
+# rmsnorm's backward also over 4096 rows of xlstm-125m's and
+# h2o-danube-1.8b's widths
+RMS_BWD_WIDTHS = (768, 2560)
+# the learning check (learn_phase): 2 full-width granite layers, wq and
+# wk at their true fan-in, AdamW at lr 1e-3 (3 warm-up steps) for 30
+# steps of 4 x 1024 tokens; the mean loss of the last 5 steps must be at
+# least 0.5 below that of the first 5 (set before any run)
+LEARN_STEPS, LEARN_WINDOW, LEARN_DROP = 30, 5, 0.5
 RESUME_ARCH = XLSTM_ARCH
 RESUME_BATCH, RESUME_SEQ, RESUME_STEPS = 4, 256, 8
 # the stacked superbatch: members of a grouped launch checked against the
@@ -245,10 +258,15 @@ TC_KERNELS = {"moe_gmm": ("gmm_wgmma", "HGMMA"),
               "flash_attention": ("flash_fwd_wgmma", "HGMMA"),
               "flash_attention_bwd": ("_wgmma", "HGMMA"),
               "decode_attention": ("decode_bf16", "HMMA")}
-# tensor-core kernels that must compile without spilling: flash
-# backward's at the trained head dims (granite's 64, h2o's 80)
-NO_SPILL = ("flash_bwd_dq_wgmma<64>", "flash_bwd_dkdv_wgmma<64>",
-            "flash_bwd_dq_wgmma<80>", "flash_bwd_dkdv_wgmma<80>")
+# kernels that must compile without spilling, by source: flash
+# backward's tensor-core kernels at the trained head dims (granite's 64,
+# h2o's 80), and rmsnorm's backward at every K (its prefetched rows and
+# column sums live in registers)
+NO_SPILL = {"flash_attention_bwd": ("flash_bwd_dq_wgmma<64>",
+                                    "flash_bwd_dkdv_wgmma<64>",
+                                    "flash_bwd_dq_wgmma<80>",
+                                    "flash_bwd_dkdv_wgmma<80>"),
+            "rmsnorm": ("rmsnorm_bwd_kernel",)}
 
 
 class SmokeFailure(AssertionError):
@@ -368,19 +386,19 @@ def build_phase() -> None:
                   f"registers, {r['spill_stores']} B spill stores, "
                   f"{r['spill_loads']} B spill loads, {r['smem']} B static "
                   f"smem")
-            if any(k in short[r["kernel"]] for k in NO_SPILL):
+            if any(k in short[r["kernel"]] for k in NO_SPILL.get(name, ())):
                 check(r["spill_stores"] == r["spill_loads"] == 0,
                       f"{short[r['kernel']]} spills")
         # ptxas's notes on wgmma pipelines it had to serialize
         for line in log.splitlines():
             if "Performance Loss" in line:
                 print("  " + line.strip())
-        if name == "flash_attention_bwd" and name in build.logs and \
+        if name in NO_SPILL and name in build.logs and \
                 any(k != v for k, v in short.items()):   # demangled
-            found = [k for k in NO_SPILL
+            found = [k for k in NO_SPILL[name]
                      if any(k in short[r["kernel"]] for r in res)]
-            check(len(found) == len(NO_SPILL),
-                  f"ptxas lines of {NO_SPILL} not found: {found}")
+            check(len(found) == len(NO_SPILL[name]),
+                  f"ptxas lines of {NO_SPILL[name]} not found: {found}")
     for name, (tag, opcode) in TC_KERNELS.items():
         counts = build.sass_counts(name, opcode)
         short = demangle(counts)
@@ -1866,34 +1884,84 @@ def _gmm_bwd_against_copies(x, w, dy, got) -> dict:
     return out
 
 
-def step_bits_phase(device) -> dict:
-    """``STEP_BITS_STEPS`` AdamW steps of granite-moe-3b-a800m at full
-    width cut to 2 layers (bf16 compute, float32 parameters), as
-    ``launch.train`` takes them (seed-0 model, the synthetic pipeline at
-    4 x 1024 tokens, ``make_train_step`` in ``train_step.deterministic``):
-    each step's loss and gradient norm and every parameter after the last
-    step, on the host. Run once before every other phase and once after
-    them, the two must agree bit for bit: a training step's bits may not
-    follow what the process ran before (F9 showed after the first step)."""
+def granite_steps(device, n_steps, adamw, true_fan_in=False):
+    """``n_steps`` AdamW steps of granite-moe-3b-a800m at full width cut to
+    2 layers (bf16 compute, float32 parameters), as ``launch.train`` takes
+    them: the seed-0 model (wq and wk at their true fan-in if asked,
+    ``unit_scores``), the synthetic pipeline at 4 x 1024 tokens,
+    ``make_train_step`` in ``train_step.deterministic``. Returns the model
+    after the last step and each step's loss and gradient norm, on the
+    host."""
     from repro_torch.train import data as data_mod
     cfg = served_config(TRAIN_ARCH, num_layers=2)
     model = tf.init_model(cfg, torch.Generator(device=device).manual_seed(0),
                           device, trainable=True)
+    if true_fan_in:
+        unit_scores(model)
     ostate = opt.init_opt_state(dict(model.named_parameters()))
     pipe = data_mod.TokenPipeline(data_mod.DataConfig(
         vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
-    step = steps.make_train_step(cfg, opt.AdamWConfig(
-        total_steps=STEP_BITS_STEPS))
+    step = steps.make_train_step(cfg, adamw)
     losses, norms = [], []
     with steps.deterministic():
-        for i in range(STEP_BITS_STEPS):
+        for i in range(n_steps):
             model, ostate, metrics = step(model, ostate, pipe.batch_at(i))
             losses.append(metrics["loss"].cpu())
             norms.append(metrics["grad_norm"].cpu())
-    out = {"losses": torch.stack(losses), "norms": torch.stack(norms),
+    del ostate
+    return model, torch.stack(losses), torch.stack(norms)
+
+
+def step_bits_phase(device) -> dict:
+    """``STEP_BITS_STEPS`` steps of ``granite_steps``: each step's loss and
+    gradient norm and every parameter after the last step, on the host.
+    Run once before every other phase and once after them, the two must
+    agree bit for bit: a training step's bits may not follow what the
+    process ran before (F9 showed after the first step)."""
+    model, losses, norms = granite_steps(
+        device, STEP_BITS_STEPS, opt.AdamWConfig(total_steps=STEP_BITS_STEPS))
+    out = {"losses": losses, "norms": norms,
            "params": {n: p.detach().cpu()
                       for n, p in model.named_parameters()}}
-    del model, ostate
+    del model
+    free_memory()
+    return out
+
+
+def learn_phase(device) -> dict:
+    """Training learns on the card at full width: ``LEARN_STEPS`` steps of
+    ``granite_steps`` with wq and wk at their true fan-in (at the JAX init
+    scale the gradient norm is about 2e15 and clipping leaves no update,
+    F3), AdamW at lr 1e-3 after 3 warm-up steps, every forward and
+    backward kernel of the path launched. Every loss and gradient norm is
+    printed; the mean loss of the last ``LEARN_WINDOW`` steps must be at
+    least ``LEARN_DROP`` below that of the first."""
+    zero_train_launches()
+    t0 = time.perf_counter()
+    model, losses, norms = granite_steps(
+        device, LEARN_STEPS, opt.AdamWConfig(lr=1e-3, warmup_steps=3,
+                                             total_steps=LEARN_STEPS),
+        true_fan_in=True)
+    del model
+    launches = train_launches()
+    losses, norms = losses.tolist(), norms.tolist()
+    first = float(np.mean(losses[:LEARN_WINDOW]))
+    last = float(np.mean(losses[-LEARN_WINDOW:]))
+    out = {"losses": losses, "grad_norms": norms, "first_mean": first,
+           "last_mean": last, "drop": first - last, "launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    print(f"learn {TRAIN_ARCH} (2 of 32 layers at full width, wq and wk at "
+          f"their true fan-in, bf16 compute, AdamW lr 1e-3, "
+          f"{LEARN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}): losses " +
+          " ".join(f"{x:.4f}" for x in losses) + "; gradient norms " +
+          " ".join(f"{x:.4g}" for x in norms) +
+          f"; mean of the first {LEARN_WINDOW} {first:.4f}, of the last "
+          f"{LEARN_WINDOW} {last:.4f}, drop {first - last:.4f} (at least "
+          f"{LEARN_DROP}); launches {launches}; {out['wall_s']:.1f} s")
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    check(all(launches.values()), f"a training kernel never ran: {launches}")
+    check(first - last >= LEARN_DROP,
+          f"the loss fell by {first - last:.4f}, less than {LEARN_DROP}")
     free_memory()
     return out
 
@@ -1918,6 +1986,41 @@ def same_step_bits(early: dict, late: dict) -> dict:
     return out
 
 
+def rms_bwd_row(device, R, d, dt) -> dict:
+    """rmsnorm's backward over R rows of d: against ``ref.rmsnorm_bwd``
+    within ``BWD_TOL``, a second launch bit for bit the first, one call one
+    kernel (the cooperative launch: one node of a CUDA graph, no memset or
+    copy), timed beside the plain version and ``F.rms_norm``'s backward;
+    the bound is x and dy read and dx written once (the partial rows of
+    dscale are the design's own traffic, not counted)."""
+    size, name = (2 if dt == torch.bfloat16 else 4), str(dt)[6:]
+    x = _randn((R, d), dt, device, 1) * 3
+    scale = 1 + 0.1 * _randn((d,), torch.float32, device, 2)
+    dy = _randn((R, d), dt, device, 3)
+    got = rms.rmsnorm_bwd(x, scale, dy)
+    want = ref.rmsnorm_bwd(x, scale, dy)
+    err, aerr = _rel_err(got, want), _abs_err(got, want)
+    again = rms.rmsnorm_bwd(x, scale, dy)
+    check(err <= BWD_TOL[dt] and all(torch.equal(a, b) for a, b in
+                                     zip(got, again)),
+          f"rmsnorm_bwd {R}x{d} {dt}: rel err {err}, bits repeat "
+          f"{[torch.equal(a, b) for a, b in zip(got, again)]}")
+    nodes = build.graph_kernels(lambda: rms.rmsnorm_bwd(x, scale, dy))
+    check(len(nodes) == 1 and "rmsnorm_bwd_kernel" in nodes[0],
+          f"rmsnorm_bwd {R}x{d} {dt}: one call puts {nodes} in a graph")
+    t = _in_turns(lambda: rms.rmsnorm_bwd(x, scale, dy),
+                  lambda: ref.rmsnorm_bwd(x, scale, dy),
+                  _library_grad(lambda a, w: F.rms_norm(a, (d,), w, 1e-6),
+                                (x, scale.to(dt)), dy), iters=20)
+    bound, by = _bound(10.0 * R * d, 3 * R * d * size + 8 * d, dt)
+    label = f"{R}x{d} {name}"
+    print(f"rmsnorm_bwd {label}: one call is one kernel node "
+          f"({demangle(nodes)[nodes[0]].split('(')[0]})")
+    return {("rmsnorm_bwd", label): _row("rmsnorm_bwd", label, aerr, t,
+                                         bound, by, rel=err) |
+            {"graph_nodes": len(nodes)}}
+
+
 def bwd_kernel_phase(device) -> dict:
     """Each backward kernel against its plain version at the training
     shapes (``ref.rmsnorm_bwd``, ``ref.attention_bwd``,
@@ -1925,7 +2028,9 @@ def bwd_kernel_phase(device) -> dict:
     2e-2 relative to the largest entry, a second launch bit for bit the
     first (no atomics), timed beside the plain version and the library's
     backward (``F.rms_norm``'s, SDPA's, ``torch.bmm``'s, by one
-    ``torch.autograd.grad`` call). ``moe_gmm_bwd`` also launches its two
+    ``torch.autograd.grad`` call). rmsnorm's backward also at xlstm-125m's
+    and h2o-danube-1.8b's widths (``RMS_BWD_WIDTHS``), each call one
+    kernel (``rms_bwd_row``). ``moe_gmm_bwd`` also launches its two
     GEMM kernels and nothing else (``gmm_bwd_kernels``), and is compared
     bit for bit with, and timed beside, the forward kernel on transposed,
     padded copies."""
@@ -1936,26 +2041,8 @@ def bwd_kernel_phase(device) -> dict:
     for dt in (torch.bfloat16, torch.float32):
         size, name = (2 if dt == torch.bfloat16 else 4), str(dt)[6:]
         R = TRAIN_BATCH * TRAIN_SEQ
-        x = _randn((R, d), dt, device, 1) * 3
-        scale = 1 + 0.1 * _randn((d,), torch.float32, device, 2)
-        dy = _randn((R, d), dt, device, 3)
-        got = rms.rmsnorm_bwd(x, scale, dy)
-        want = ref.rmsnorm_bwd(x, scale, dy)
-        err, aerr = _rel_err(got, want), _abs_err(got, want)
-        again = rms.rmsnorm_bwd(x, scale, dy)
-        check(err <= BWD_TOL[dt] and all(torch.equal(a, b) for a, b in
-                                         zip(got, again)),
-              f"rmsnorm_bwd {R}x{d} {dt}: rel err {err}, bits repeat "
-              f"{[torch.equal(a, b) for a, b in zip(got, again)]}")
-        t = _in_turns(lambda: rms.rmsnorm_bwd(x, scale, dy),
-                      lambda: ref.rmsnorm_bwd(x, scale, dy),
-                      _library_grad(lambda a, w: F.rms_norm(a, (d,), w, 1e-6),
-                                    (x, scale.to(dt)), dy), iters=20)
-        bound, by = _bound(10.0 * R * d, 3 * R * d * size + 8 * d, dt)
-        label = f"{R}x{d} {name}"
-        rows[("rmsnorm_bwd", label)] = _row("rmsnorm_bwd", label, aerr, t,
-                                            bound, by, rel=err)
-        del x, dy, got, want, again
+        for width in (d,) + RMS_BWD_WIDTHS:
+            rows.update(rms_bwd_row(device, R, width, dt))
         for B, S, h, kv, hd, W in ((TRAIN_BATCH, TRAIN_SEQ, H, KV, D, None),
                                    (1, 4096, 32, 8, 80, 4096)):
             q = _randn((B, S, h, hd), dt, device, 4)
@@ -2377,12 +2464,15 @@ def main() -> int:
             device, arch, WIDE_RMS_SHAPES if arch == WIDE_RMS_ARCH else (),
             ()))
     # training: the backward kernels at granite-moe-3b-a800m's training
-    # shapes, one float32 step of 2 full-width layers on the kernel path
-    # against the plain path, the published config for TRAIN_STEPS steps
-    # through launch.train (the last traced), and xlstm-125m's resume
+    # shapes, the step bits against the first phase's, the learning check
+    # (2 full-width layers, 30 steps), one float32 step of 2 full-width
+    # layers on the kernel path against the plain path, the published
+    # config for TRAIN_STEPS steps through launch.train (the last traced),
+    # and xlstm-125m's resume
     bwd_rows = bwd_kernel_phase(device)
     same_step_bits(early_bits, step_bits_phase(device))
     del early_bits
+    learn_phase(device)
     train_parity_phase(device)
     training = train_phase(device)
     resume_phase(device)

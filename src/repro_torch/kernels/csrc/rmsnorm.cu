@@ -40,18 +40,44 @@
 // and trains through XLA's derivative): with r = rsqrt(mean(x^2) + eps)
 // recomputed from the row,
 //   dx = r (dy s) - x r^3 mean(dy s x),   dscale = sum over rows dy x r,
-// float32 inside, dx rounded once to x's type. rmsnorm_bwd_rows keeps the
-// forward's layout (a row's values in its threads' registers, x and dy
-// each read once) and reduces sum(x^2) and sum(dy s x) together; a block
-// walks rows with a stride of the grid and sums each column's dy x r
-// over its rows in registers, then over its row slots in shared memory
-// in slot order, into one partial row. rmsnorm_bwd_scale adds the
-// blocks' partial rows in block order. No float atomics: dscale has the
-// same bits from run to run. The grid is at most kPartials blocks, so
-// the caller's scratch holds kPartials partial rows. Bound: bytes, x, dy
-// and dx once each (3 R D sizeof(T)) plus the partials; at 4096 x 1536
-// bf16 37.7 MB, 11.3 us.
+// float32 inside, dx rounded once to x's type. Bound: bytes, x and dy
+// read once and dx written once (3 R D sizeof(T), plus scale and dscale);
+// the partial rows below are the design's overhead, not the function's
+// work. At 4096 x 1536 bf16 37.7 MB, 11.3 us.
+//
+// rmsnorm_bwd_kernel is one cooperative launch whose grid is the blocks
+// the card holds at once (occupancy x SMs: one block an SM where a
+// thread's registers pass 128), or fewer, so that every block takes the
+// same number of row groups give or take one:
+//   * rows: the forward's layout (T threads a row, K vectors a thread;
+//     row groups of 256 / T rows), sum(x^2) and sum(dy s x) reduced
+//     together in the forward's order, dx's per-row arithmetic in a fixed
+//     order, so a row's dx does not depend on the row count. Block b
+//     takes a fixed range of row groups, worked out from (rows, D, grid);
+//   * prefetch: each thread loads its vectors of the next row groups'
+//     x and dy into registers (16-byte loads; two groups ahead where a
+//     thread holds at most 20 values a row, else one) before it reduces
+//     the current group, so every warp keeps loads in flight and its
+//     first rows land after one memory latency. A thread holds
+//     scale and its column sums in registers, except float32 at K 7 and
+//     8, which read scale from shared memory. No thread spills at any K
+//     (launch bounds of one block an SM). A tensor or row that is not
+//     16-byte aligned takes the same kernel with scalar loads and stores
+//     (VEC = false): the same values in the same threads and order;
+//   * dscale, inside the launch and in a fixed order: each row slot sums
+//     dy x r over its rows in registers; the block adds its slots in slot
+//     order into one partial row (grid x D floats of scratch); a
+//     grid-wide barrier (cooperative_groups); then every block sums
+//     slices of 8 columns over all partial rows: 32 splits of the rows
+//     (split p takes rows p, p + 32, ... in order), added by xor shuffles
+//     and then warp by warp. No float atomics and no counter: the bits
+//     depend on (rows, D, type, grid) only, and the grid on the card.
+#include <cooperative_groups.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "common.cuh"
 
@@ -61,7 +87,6 @@ using repro_torch::from_float;
 
 constexpr int kBlock = 256;   // threads of a block
 constexpr int kValues = 32;   // values a thread holds at most
-constexpr int kPartials = 264;   // backward blocks at most: 2 an SM
 
 template <typename T>
 struct Vec {
@@ -237,38 +262,64 @@ int launch(const void* x, const void* scale, void* out, long long rows,
 
 // -- backward -----------------------------------------------------------------
 
-// TPR threads a row, K vectors a thread, kBlock / TPR row slots a block;
-// the block walks rows base + slot, base stepping by the grid's rows.
+// dscale's column sums across the grid: a slice of kSlice columns is
+// summed by the whole block, its partial rows split kSplits ways (lanes
+// 8 apart, then the block's 8 warps), each split's rows loaded kBatch at
+// a time; a block takes kRound slices between two barriers.
+constexpr int kSlice = 8;
+constexpr int kSplits = kBlock / kSlice;
+constexpr int kBatch = 16;
+constexpr int kRound = 8;
+// dynamic shared memory at most: the row slots' column sums (256 / T
+// rows of D, at most 8192 floats) and scale (8192 floats)
+constexpr int kMaxSmem = 2 * 8192 * 4;
+
+// What a thread keeps in registers at K vectors: how many row groups it
+// has loaded ahead of the one it reduces (two where it holds at most 20
+// values a row: bf16 up to K 2, float32 up to K 5; more loads in flight
+// there were faster, elsewhere slower), and whether scale is read from
+// shared memory instead of held (float32 at K 7 and 8, where x, dy, scale
+// and the column sums would not fit twice).
+template <typename T, int K>
+struct BwdRegs {
+  static constexpr bool kSharedScale = sizeof(T) == 4 && K >= 7;
+  static constexpr int kAhead = K * Vec<T>::kN <= 20 ? 2 : 1;
+};
+
+// One cooperative launch. Rows: TPR threads a row, K vectors a thread,
+// kBlock / TPR row slots a block; block b takes the row groups [G b /
+// grid, G (b + 1) / grid) of the G groups, each group's x and dy loaded
+// kAhead groups before it is reduced. Then dscale: each block's partial
+// row, a grid-wide barrier, every block sums column slices.
 template <typename T, int K, bool VEC>
-__global__ void __launch_bounds__(kBlock)
-    rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ scale,
-                     const T* __restrict__ dy, T* __restrict__ dx,
-                     float* __restrict__ partials, long long rows, int D,
-                     int TPR, float eps) {
+__global__ void __launch_bounds__(kBlock, 1)
+    rmsnorm_bwd_kernel(const T* __restrict__ x,
+                       const float* __restrict__ scale,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ partials,
+                       float* __restrict__ dscale, long long rows, int D,
+                       int TPR, float eps) {
   constexpr int n = Vec<T>::kN;
-  __shared__ float warp_sums[kBlock / 32][2];
-  __shared__ float slots[kBlock * kValues];   // (row slots, D) column sums
+  constexpr int kAhead = BwdRegs<T, K>::kAhead;
+  constexpr bool kSharedScale = BwdRegs<T, K>::kSharedScale;
+  extern __shared__ __align__(16) float smem[];   // row slots, then scale
+  __shared__ float warp_sums[2][kBlock / 32][2];
+  __shared__ float col_sums[kRound][kBlock / 32][kSlice];
   const int rpb = kBlock / TPR;
   const int local = threadIdx.x / TPR;
   const int t = threadIdx.x % TPR;
   const int wpr = TPR / 32;
+  const long long groups = (rows + rpb - 1) / rpb;
+  const long long g0 = groups * blockIdx.x / gridDim.x;
+  const long long count = groups * (blockIdx.x + 1) / gridDim.x - g0;
 
-  float sc[K][n], acc[K][n];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    load_scale<T, VEC>(scale, (k * TPR + t) * n, D, sc[k]);
-#pragma unroll
-    for (int e = 0; e < n; ++e) acc[k][e] = 0.0f;
-  }
-
-  for (long long base = (long long)blockIdx.x * rpb; base < rows;
-       base += (long long)gridDim.x * rpb) {
-    const long long row = base + local;
-    const bool live = row < rows;
-    const int limit = live ? D : 0;
-    const T* xr = x + (live ? row : 0) * D;
-    const T* dyr = dy + (live ? row : 0) * D;
-    uint4 rx[K], rd[K];
+  // group g0 + j's x and dy, held as loaded (bf16 pairs packed), zeros
+  // past the rows
+  auto load = [&](long long j, uint4 (&rx)[K], uint4 (&rd)[K]) {
+    const long long row = (g0 + j) * rpb + local;
+    const int limit = row < rows ? D : 0;
+    const T* xr = x + (row < rows ? row : 0) * D;
+    const T* dyr = dy + (row < rows ? row : 0) * D;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int i = (k * TPR + t) * n;
@@ -279,22 +330,56 @@ __global__ void __launch_bounds__(kBlock)
         T* ex = reinterpret_cast<T*>(&rx[k]);
         T* ed = reinterpret_cast<T*>(&rd[k]);
 #pragma unroll
-        for (int j = 0; j < n; ++j) {
-          ex[j] = i + j < limit ? xr[i + j] : from_float<T>(0.0f);
-          ed[j] = i + j < limit ? dyr[i + j] : from_float<T>(0.0f);
+        for (int q = 0; q < n; ++q) {
+          ex[q] = i + q < limit ? xr[i + q] : from_float<T>(0.0f);
+          ed[q] = i + q < limit ? dyr[i + q] : from_float<T>(0.0f);
         }
       }
     }
+  };
+  // buffer 0: the group being reduced; 1..kAhead: the ones after it
+  uint4 bx[kAhead + 1][K], bd[kAhead + 1][K];
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a)
+    if (a < count) load(a, bx[a], bd[a]);
+
+  float* s_scale = smem + rpb * D;
+  float sc[kSharedScale ? 1 : K][n], acc[K][n];
+  if constexpr (kSharedScale) {
+    for (int i = threadIdx.x; i < D; i += kBlock) s_scale[i] = scale[i];
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if constexpr (!kSharedScale)
+      load_scale<T, VEC>(scale, (k * TPR + t) * n, D, sc[k]);
+#pragma unroll
+    for (int e = 0; e < n; ++e) acc[k][e] = 0.0f;
+  }
+  // scale's values of vector k: held, or read from shared memory
+  auto scale_of = [&](int k, float (&v)[n]) {
+    if constexpr (kSharedScale) {
+      load_scale<T, VEC>(s_scale, (k * TPR + t) * n, D, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < n; ++e) v[e] = sc[k][e];
+    }
+  };
+
+  for (long long j = 0; j < count; ++j) {
+    if (j + kAhead < count) load(j + kAhead, bx[kAhead], bd[kAhead]);
+    const long long row = (g0 + j) * rpb + local;
     float ss = 0.0f, dot = 0.0f;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      float xv[n], dv[n];
-      unpack<T>(rx[k], xv);
-      unpack<T>(rd[k], dv);
+      float xv[n], dv[n], sv[n];
+      unpack<T>(bx[0][k], xv);
+      unpack<T>(bd[0][k], dv);
+      scale_of(k, sv);
 #pragma unroll
       for (int e = 0; e < n; ++e) {
         ss = fmaf(xv[e], xv[e], ss);
-        dot = fmaf(dv[e] * sc[k][e], xv[e], dot);
+        dot = fmaf(dv[e] * sv[e], xv[e], dot);
       }
     }
 #pragma unroll
@@ -302,117 +387,243 @@ __global__ void __launch_bounds__(kBlock)
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
       dot += __shfl_xor_sync(0xffffffffu, dot, o);
     }
-    if (TPR > 32) {
-      __syncthreads();   // the previous row's warp sums are read
+    if (TPR > 32) {   // two buffers: group j - 1's reads end before j's barrier
+      float (*ws)[2] = warp_sums[j & 1];
       if ((threadIdx.x & 31) == 0) {
-        warp_sums[threadIdx.x >> 5][0] = ss;
-        warp_sums[threadIdx.x >> 5][1] = dot;
+        ws[threadIdx.x >> 5][0] = ss;
+        ws[threadIdx.x >> 5][1] = dot;
       }
       __syncthreads();
       ss = dot = 0.0f;
       for (int w = 0; w < wpr; ++w) {
-        ss += warp_sums[local * wpr + w][0];
-        dot += warp_sums[local * wpr + w][1];
+        ss += ws[local * wpr + w][0];
+        dot += ws[local * wpr + w][1];
       }
     }
-    if (!live) continue;
-    const float r = 1.0f / sqrtf(ss / (float)D + eps);
-    const float c = r * r * r * (dot / (float)D);
-    T* dxr = dx + row * D;
+    if (row < rows) {
+      const float r = 1.0f / sqrtf(ss / (float)D + eps);
+      const float c = r * r * r * (dot / (float)D);
+      T* dxr = dx + row * D;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float xv[n], dv[n], out[n];
-      unpack<T>(rx[k], xv);
-      unpack<T>(rd[k], dv);
+      for (int k = 0; k < K; ++k) {
+        float xv[n], dv[n], sv[n], out[n];
+        unpack<T>(bx[0][k], xv);
+        unpack<T>(bd[0][k], dv);
+        scale_of(k, sv);
 #pragma unroll
-      for (int e = 0; e < n; ++e) {
-        out[e] = r * (dv[e] * sc[k][e]) - xv[e] * c;
-        acc[k][e] = fmaf(dv[e] * xv[e], r, acc[k][e]);
+        for (int e = 0; e < n; ++e) {
+          out[e] = r * (dv[e] * sv[e]) - xv[e] * c;
+          acc[k][e] = fmaf(dv[e] * xv[e], r, acc[k][e]);
+        }
+        store_vec<T, VEC>(dxr, (k * TPR + t) * n, D, out);
       }
-      store_vec<T, VEC>(dxr, (k * TPR + t) * n, D, out);
     }
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a)
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        bx[a][k] = bx[a + 1][k];
+        bd[a][k] = bd[a + 1][k];
+      }
   }
 
-  // the block's row slots, added in slot order, into its partial row
+  // the block's row slots, added in slot order, into its partial row (with
+  // one block, into dscale). A thread's n columns go out as float4s (VEC),
+  // which keeps shared memory's banks apart.
+  float* mine = gridDim.x == 1 ? dscale : partials + (long long)blockIdx.x * D;
+  float* dst = rpb == 1 ? mine : smem + local * D;
 #pragma unroll
-  for (int k = 0; k < K; ++k)
+  for (int k = 0; k < K; ++k) {
+    const int i = (k * TPR + t) * n;
+    if (VEC && i + n <= D) {
 #pragma unroll
-    for (int e = 0; e < n; ++e) {
-      const int i = (k * TPR + t) * n + e;
-      if (i < D) slots[local * D + i] = acc[k][e];
+      for (int e = 0; e < n; e += 4)
+        *reinterpret_cast<float4*>(dst + i + e) =
+            make_float4(acc[k][e], acc[k][e + 1], acc[k][e + 2],
+                        acc[k][e + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < n; ++e)
+        if (i + e < D) dst[i + e] = acc[k][e];
     }
-  __syncthreads();
-  for (int i = threadIdx.x; i < D; i += kBlock) {
-    float sum = 0.0f;
-    for (int l = 0; l < rpb; ++l) sum += slots[l * D + i];
-    partials[(long long)blockIdx.x * D + i] = sum;
+  }
+  if (rpb > 1) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < D; i += kBlock) {
+      float sum = 0.0f;
+      for (int l = 0; l < rpb; ++l) sum += smem[l * D + i];
+      mine[i] = sum;
+    }
+  }
+  if (gridDim.x == 1) return;
+  cooperative_groups::this_grid().sync();
+
+  // dscale[c]: the grid's partial rows at column c, in a fixed tree. Split
+  // p = tid / kSlice adds rows p, p + 32, ... in order (loaded kBatch at a
+  // time, then added); lanes 8 and 16 apart add theirs (xor shuffles);
+  // warp 0's sums, then warp 1's, ...
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = lane % kSlice, split = threadIdx.x / kSlice;
+  const int grid = gridDim.x;
+  const int slices = (D + kSlice - 1) / kSlice;
+  for (int first = blockIdx.x; first < slices; first += grid * kRound) {
+    float sum[kRound];
+#pragma unroll
+    for (int m = 0; m < kRound; ++m) sum[m] = 0.0f;
+    for (int m = 0; m < kRound; ++m) {
+      const int c = (first + m * grid) * kSlice + col;
+      if (c >= D) break;
+      for (int b0 = split; b0 < grid; b0 += kBatch * kSplits) {
+        float v[kBatch];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int b = b0 + q * kSplits;
+          v[q] = b < grid ? __ldcg(partials + (long long)b * D + c) : 0.0f;
+        }
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q)
+          if (b0 + q * kSplits < grid) sum[m] += v[q];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kRound; ++m) {
+      sum[m] += __shfl_xor_sync(0xffffffffu, sum[m], 8);
+      sum[m] += __shfl_xor_sync(0xffffffffu, sum[m], 16);
+      if (lane < kSlice) col_sums[m][warp][lane] = sum[m];
+    }
+    __syncthreads();
+    if (threadIdx.x < kRound * kSlice) {
+      const int m = threadIdx.x / kSlice, cc = threadIdx.x % kSlice;
+      const int c = (first + m * grid) * kSlice + cc;
+      if (c < D) {
+        float total = 0.0f;
+        for (int w = 0; w < kBlock / 32; ++w) total += col_sums[m][w][cc];
+        dscale[c] = total;
+      }
+    }
+    __syncthreads();
   }
 }
 
-// dscale[i] = the blocks' partial rows at column i, added in block order.
-__global__ void __launch_bounds__(kBlock)
-    rmsnorm_bwd_scale(const float* __restrict__ partials,
-                      float* __restrict__ dscale, int blocks, int D) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= D) return;
-  float sum = 0.0f;
-  for (int b = 0; b < blocks; ++b) sum += partials[(long long)b * D + i];
-  dscale[i] = sum;
+// What one backward call takes: its tensors and shape, its threads a row,
+// and the dynamic shared memory of its kernel. `partial_rows` set: only
+// report the scratch rows it needs.
+struct Bwd {
+  const void* x;
+  const void* scale;
+  const void* dy;
+  void* dx;
+  void* partials;
+  void* dscale;
+  long long rows;
+  int D, tpr;
+  float eps;
+  cudaStream_t stream;
+  int* partial_rows;
+};
+
+// Blocks of `fn` an SM holds with `smem` bytes of dynamic shared memory,
+// times the SMs of the current device; computed once a kernel, device and
+// size (the first call also lifts the kernel's shared memory limit).
+int resident_blocks(const void* fn, int smem, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int>, int> cache;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const auto key = std::make_tuple(fn, dev, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *blocks = hit->second;
+    return 0;
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlock,
+                                                      smem);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *blocks = cache[key] = per_sm * sms;
+  return 0;
+}
+
+// The grid: as many blocks as the card holds at once, or fewer, so that
+// every block takes the same number of row groups, give or take one.
+template <typename T, int K, bool VEC>
+int run_bwd(const Bwd& a) {
+  auto fn = rmsnorm_bwd_kernel<T, K, VEC>;
+  const int rpb = kBlock / a.tpr;
+  const int smem =
+      (rpb + (BwdRegs<T, K>::kSharedScale ? 1 : 0)) * a.D * (int)sizeof(float);
+  int resident = 0;
+  const int e = resident_blocks((const void*)fn, smem, &resident);
+  if (e) return e;
+  const long long groups = (a.rows + rpb - 1) / rpb;
+  const long long rounds = (groups + resident - 1) / resident;
+  const int grid = (int)((groups + rounds - 1) / rounds);
+  if (a.partial_rows) {
+    *a.partial_rows = grid > 1 ? grid : 0;
+    return 0;
+  }
+  const T* x = (const T*)a.x;
+  const float* scale = (const float*)a.scale;
+  const T* dy = (const T*)a.dy;
+  T* dx = (T*)a.dx;
+  float* partials = (float*)a.partials;
+  float* dscale = (float*)a.dscale;
+  long long rows = a.rows;
+  int D = a.D, tpr = a.tpr;
+  float eps = a.eps;
+  void* args[] = {&x, &scale, &dy, &dx, &partials, &dscale,
+                  &rows, &D, &tpr, &eps};
+  return (int)cudaLaunchCooperativeKernel((const void*)fn, dim3(grid),
+                                          dim3(kBlock), args, smem,
+                                          a.stream);
 }
 
 template <typename T, int K>
-int launch_bwd_k(const T* x, const float* scale, const T* dy, T* dx,
-                 float* partials, float* dscale, long long rows, int D,
-                 int tpr, bool vec, float eps, cudaStream_t s) {
-  const int rpb = kBlock / tpr;
-  const long long need = (rows + rpb - 1) / rpb;
-  const int blocks = (int)(need < kPartials ? need : kPartials);
-  if (vec)
-    rmsnorm_bwd_rows<T, K, true><<<blocks, kBlock, 0, s>>>(
-        x, scale, dy, dx, partials, rows, D, tpr, eps);
-  else
-    rmsnorm_bwd_rows<T, K, false><<<blocks, kBlock, 0, s>>>(
-        x, scale, dy, dx, partials, rows, D, tpr, eps);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rmsnorm_bwd_scale<<<(D + kBlock - 1) / kBlock, kBlock, 0, s>>>(
-      partials, dscale, blocks, D);
-  return (int)cudaGetLastError();
+int run_bwd_k(const Bwd& a, bool vec) {
+  return vec ? run_bwd<T, K, true>(a) : run_bwd<T, K, false>(a);
 }
 
 template <typename T>
-int launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
-               void* partials, void* dscale, long long rows, int D, float eps,
-               cudaStream_t s) {
+int launch_bwd(Bwd a) {
   constexpr int n = Vec<T>::kN;
-  const int nvec = (D + n - 1) / n;
+  const int nvec = (a.D + n - 1) / n;
   constexpr int kMaxK = Vec<T>::kMaxK;
   int tpr = 32;
   while (tpr < kBlock && nvec > kMaxK * tpr) tpr *= 2;
   const int k = (nvec + tpr - 1) / tpr;
   if (k > kMaxK) return (int)cudaErrorInvalidValue;
-  const bool vec = D % n == 0 &&
-      ((uintptr_t)x | (uintptr_t)dy | (uintptr_t)dx | (uintptr_t)scale) % 16 == 0;
-  const T* xt = (const T*)x;
-  const T* dyt = (const T*)dy;
-  const float* sc = (const float*)scale;
-  T* dxt = (T*)dx;
-  float* pt = (float*)partials;
-  float* ds = (float*)dscale;
+  const bool vec = a.D % n == 0 &&
+      ((uintptr_t)a.x | (uintptr_t)a.dy | (uintptr_t)a.dx |
+       (uintptr_t)a.scale) % 16 == 0;
+  a.tpr = tpr;
   switch (k) {
-    case 1: return launch_bwd_k<T, 1>(xt, sc, dyt, dxt, pt, ds, rows, D, tpr, vec, eps, s);
-    case 2: return launch_bwd_k<T, 2>(xt, sc, dyt, dxt, pt, ds, rows, D, tpr, vec, eps, s);
-    case 3: return launch_bwd_k<T, 3>(xt, sc, dyt, dxt, pt, ds, rows, D, tpr, vec, eps, s);
-    case 4: return launch_bwd_k<T, 4>(xt, sc, dyt, dxt, pt, ds, rows, D, tpr, vec, eps, s);
+    case 1: return run_bwd_k<T, 1>(a, vec);
+    case 2: return run_bwd_k<T, 2>(a, vec);
+    case 3: return run_bwd_k<T, 3>(a, vec);
+    case 4: return run_bwd_k<T, 4>(a, vec);
   }
   if constexpr (kMaxK > 4) {   // float32
     switch (k) {
-      case 5: return launch_bwd_k<T, 5>(xt, sc, dyt, dxt, pt, ds, rows, D, tpr, vec, eps, s);
-      case 6: return launch_bwd_k<T, 6>(xt, sc, dyt, dxt, pt, ds, rows, D, tpr, vec, eps, s);
-      case 7: return launch_bwd_k<T, 7>(xt, sc, dyt, dxt, pt, ds, rows, D, tpr, vec, eps, s);
-      case 8: return launch_bwd_k<T, 8>(xt, sc, dyt, dxt, pt, ds, rows, D, tpr, vec, eps, s);
+      case 5: return run_bwd_k<T, 5>(a, vec);
+      case 6: return run_bwd_k<T, 6>(a, vec);
+      case 7: return run_bwd_k<T, 7>(a, vec);
+      case 8: return run_bwd_k<T, 8>(a, vec);
     }
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch_bwd(const Bwd& a, int dtype) {
+  if (dtype == 0) return launch_bwd<float>(a);
+  if (dtype == 1) return launch_bwd<__nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -431,22 +642,31 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
+// The rows of float32 scratch (each D wide) that rmsnorm_bwd needs with
+// these tensors on the current device: the grid's blocks, or 0 when one
+// block does it all. A negative value is a CUDA error, negated.
+extern "C" int rmsnorm_bwd_partials(const void* x, const void* scale,
+                                    const void* dy, const void* dx, int dtype,
+                                    long long rows, int D) {
+  if (rows == 0 || D == 0) return 0;
+  int need = 0;
+  const Bwd a{x,    scale, dy,   (void*)dx, nullptr, nullptr,
+              rows, D,     0,    0.0f,      nullptr, &need};
+  const int e = dispatch_bwd(a, dtype);
+  return e ? -e : need;
+}
+
 // The backward: dx (rows, D) in x's type and dscale (D,) float32 from x,
-// scale and dy; partials is (kPartials = 264, D) float32 scratch. Two
-// launches on `stream`; returns cudaGetLastError(), 0 when both
-// launched. The caller has checked what rmsnorm_fwd's caller checks, for
-// dy and dx too.
+// scale and dy, by one cooperative launch on `stream`; partials holds
+// rmsnorm_bwd_partials(...) rows of D floats. Returns the launch's CUDA
+// error, 0 when launched. The caller has checked what rmsnorm_fwd's
+// caller checks, for dy and dx too.
 extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy,
                            void* dx, void* partials, void* dscale, int dtype,
                            long long rows, int D, float eps, void* stream) {
   if (D == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (rows == 0) return (int)cudaMemsetAsync(dscale, 0, (size_t)D * 4, s);
-  if (dtype == 0)
-    return launch_bwd<float>(x, scale, dy, dx, partials, dscale, rows, D, eps,
-                             s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(x, scale, dy, dx, partials, dscale, rows,
-                                     D, eps, s);
-  return (int)cudaErrorInvalidValue;
+  const Bwd a{x, scale, dy, dx, partials, dscale, rows, D, 0, eps, s, nullptr};
+  return dispatch_bwd(a, dtype);
 }

@@ -7,10 +7,11 @@ float32 inside, rounded back to x's type. Its source is
 
 Under autograd (a grad-enabled call whose x or scale requires grad) the
 call goes through ``RMSNormFn``, whose backward is ``rmsnorm_bwd``: the
-hand-written backward kernel in the same source (dx, and dscale from
-per-block partial rows added in a fixed order), or on the CPU its plain
-version ``ref.rmsnorm_bwd``. The JAX package has no backward kernel; it
-trains through XLA's derivative of the plain norm.
+hand-written backward kernel in the same source (one cooperative launch:
+dx, and dscale from per-block partial rows added in a fixed order inside
+the launch), or on the CPU its plain version ``ref.rmsnorm_bwd``. The
+JAX package has no backward kernel; it trains through XLA's derivative
+of the plain norm.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
@@ -24,10 +25,11 @@ import torch
 from repro_torch.kernels import build, ref
 
 MAX_D = 8192          # a row's values: 256 threads x 32 values
-PARTIALS = 264        # the backward's blocks at most (csrc kPartials)
 SIGNATURES = {"rmsnorm_fwd": [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
     ctypes.c_void_p],
+    "rmsnorm_bwd_partials": [ctypes.c_void_p] * 4 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
     "rmsnorm_bwd": [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
     ctypes.c_void_p]}
@@ -83,8 +85,10 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-6):
     """The norm's gradients: (dx in x's type and shape, dscale (D,)
     float32) from x, scale and the output's gradient dy (x's type and
-    shape). On the card the backward kernel; ``rmsnorm_bwd.launches``
-    counts its launches."""
+    shape). On the card the backward kernel, one launch, with the partial
+    rows its grid needs as scratch; the same inputs give the same bits,
+    and a row's dx does not depend on the row count.
+    ``rmsnorm_bwd.launches`` counts its launches."""
     code = _check(x, scale)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
@@ -95,13 +99,18 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     d = x.shape[-1]
     dx = torch.empty_like(x)
     dscale = torch.empty(d, dtype=torch.float32, device=x.device)
-    partials = torch.empty((PARTIALS, d), dtype=torch.float32,
-                           device=x.device)
     rows = x.numel() // d if d else 0
-    build.launch(build.load("rmsnorm", SIGNATURES).rmsnorm_bwd, x.device,
-                 x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
-                 dx.data_ptr(), partials.data_ptr(), dscale.data_ptr(), code,
-                 rows, d, eps, what=f"rmsnorm_bwd at x {tuple(x.shape)}")
+    lib = build.load("rmsnorm", SIGNATURES)
+    ptrs = (x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr())
+    with torch.cuda.device(x.device):
+        need = lib.rmsnorm_bwd_partials(*ptrs, code, rows, d)
+    if need < 0:
+        raise RuntimeError(f"rmsnorm_bwd at x {tuple(x.shape)}: no launch "
+                           f"plan, CUDA error {-need}")
+    partials = torch.empty((need, d), dtype=torch.float32, device=x.device)
+    build.launch(lib.rmsnorm_bwd, x.device, *ptrs, partials.data_ptr(),
+                 dscale.data_ptr(), code, rows, d, eps,
+                 what=f"rmsnorm_bwd at x {tuple(x.shape)}")
     rmsnorm_bwd.launches += 1
     return dx, dscale
 

@@ -728,9 +728,16 @@ def _close(got, want, tol, what):
     assert err <= tol, f"{what}: {err}"
 
 
+# (rows, D): vector and scalar (D 199, 8191) paths, one row slot a block
+# (D 8192) and eight (D 64, 199, 200, 768), 1 and 3 rows and fewer row
+# groups than the grid (100 rows), the zoo's widths at its training rows
+RMS_BWD = [(1, 64), (37, 199), (300, 200), (4096, 1536), (2048, 2560),
+           (8, 6144), (1, 1536), (3, 1536), (3, 768), (100, 1536),
+           (4096, 768), (512, 4096), (5, 8191), (64, 8192), (4096, 8192)]
+
+
 @pytest.mark.parametrize("name", BWD_TOL)
-@pytest.mark.parametrize("rows,d", [(1, 64), (37, 199), (300, 200),
-                                    (4096, 1536), (2048, 2560), (8, 6144)])
+@pytest.mark.parametrize("rows,d", RMS_BWD)
 def test_rmsnorm_bwd_kernel_matches_plain_version(cuda, name, rows, d):
     """dx and dscale within tolerance of ``ref.rmsnorm_bwd``, and a second
     launch gives the same bits (dscale's partial rows are added in a fixed
@@ -749,6 +756,89 @@ def test_rmsnorm_bwd_kernel_matches_plain_version(cuda, name, rows, d):
     _close(ds, want[1], BWD_TOL[name], "dscale")
     dx2, ds2 = rms.rmsnorm_bwd(x, scale, dy)
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.parametrize("name", BWD_TOL)
+@pytest.mark.parametrize("rows,d", [(1, 64), (37, 199), (4096, 768),
+                                    (4096, 1536), (64, 4096), (5, 8191),
+                                    (64, 8192)])
+def test_rmsnorm_bwd_is_one_launch(cuda, name, rows, d):
+    """One call, captured into a CUDA graph, is one kernel node (the
+    cooperative launch) and nothing else: no second kernel, memset or
+    copy."""
+    dtype = LM_DTYPES[name][0]
+    x = _randn((rows, d), dtype, cuda, 1)
+    scale = 1 + 0.1 * _randn((d,), torch.float32, cuda, 2)
+    dy = _randn((rows, d), dtype, cuda, 3)
+    rms.rmsnorm_bwd(x, scale, dy)            # builds the kernel uncaptured
+    names = build.graph_kernels(lambda: rms.rmsnorm_bwd(x, scale, dy))
+    assert len(names) == 1 and "rmsnorm_bwd_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("name", BWD_TOL)
+@pytest.mark.parametrize("d", [1536, 8191])
+def test_rmsnorm_bwd_takes_misaligned_views(cuda, name, d):
+    """x and dy as views that start 1 and 3 elements into their storage
+    (not 16-byte aligned): within tolerance of the plain version, and dx
+    bit for bit the aligned copies' (the same per-row arithmetic)."""
+    dtype = LM_DTYPES[name][0]
+    rows = 33
+    bx = _randn((rows * d + 1,), dtype, cuda, 4) * 3
+    bd = _randn((rows * d + 3,), dtype, cuda, 5)
+    x, dy = bx[1:].view(rows, d), bd[3:].view(rows, d)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    scale = 1 + 0.1 * _randn((d,), torch.float32, cuda, 6)
+    dx, ds = rms.rmsnorm_bwd(x, scale, dy)
+    want = ref.rmsnorm_bwd(x, scale, dy)
+    _close(dx, want[0], BWD_TOL[name], "dx")
+    _close(ds, want[1], BWD_TOL[name], "dscale")
+    ax, ads = rms.rmsnorm_bwd(x.clone(), scale, dy.clone())
+    assert torch.equal(dx, ax)
+    _close(ds, ads, BWD_TOL[name], "dscale against the aligned copies")
+
+
+@pytest.mark.parametrize("name", BWD_TOL)
+@pytest.mark.parametrize("d", [768, 1536, 8192])
+def test_rmsnorm_bwd_row_bits_follow_no_row_count(cuda, name, d):
+    """A row's dx has the same bits alone (1 row), among 3 and among
+    4096: its sums and arithmetic depend on D only."""
+    dtype = LM_DTYPES[name][0]
+    x = _randn((4096, d), dtype, cuda, 7) * 3
+    scale = 1 + 0.1 * _randn((d,), torch.float32, cuda, 8)
+    dy = _randn((4096, d), dtype, cuda, 9)
+    full, _ = rms.rmsnorm_bwd(x, scale, dy)
+    for i in (0, 1, 1000, 4095):
+        alone, _ = rms.rmsnorm_bwd(x[i:i + 1], scale, dy[i:i + 1])
+        assert torch.equal(alone, full[i:i + 1]), i
+    three, _ = rms.rmsnorm_bwd(x[5:8], scale, dy[5:8])
+    assert torch.equal(three, full[5:8])
+
+
+@pytest.mark.parametrize("name", BWD_TOL)
+def test_rmsnorm_bwd_bits_repeat_beside_another_stream(cuda, name):
+    """dx and dscale at granite's training shape have the same bits after,
+    and while, other kernels run on another stream (matmuls, forward norms
+    of another shape): the grid and the summation order do not follow what
+    else the card runs."""
+    dtype = LM_DTYPES[name][0]
+    x = _randn((4096, 1536), dtype, cuda, 10) * 3
+    scale = 1 + 0.1 * _randn((1536,), torch.float32, cuda, 11)
+    dy = _randn((4096, 1536), dtype, cuda, 12)
+    first = rms.rmsnorm_bwd(x, scale, dy)
+    torch.cuda.synchronize()
+    other = torch.cuda.Stream()
+    a = _randn((2048, 2048), dtype, cuda, 13)
+    ox = _randn((1000, 2560), dtype, cuda, 14)
+    oscale = torch.ones(2560, device=cuda)
+    with torch.cuda.stream(other):
+        for _ in range(20):
+            a = (a @ a) / 2048 ** 0.5
+            rms.rmsnorm(ox, oscale)
+    seen = [rms.rmsnorm_bwd(x, scale, dy) for _ in range(5)]
+    torch.cuda.synchronize()
+    for got in seen:
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1],
+                                                             first[1])
 
 
 # (B, Sq, Sk, H, KV, D, window, q_offset): groups of 1, 2, 3 and 4,
