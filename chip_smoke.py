@@ -24,7 +24,11 @@ ungrouped kernel's, timed beside 8 ungrouped launches and cuDNN's grouped
 convolution), and the multi-query path: 8 mixed queries (Retrieval,
 Tagging, both Countings) over three 0.5 h cameras, each standalone and
 then through the FleetScheduler, bit for bit the same answers with fewer
-dispatches, untraced and traced. The LM serving path, for h2o-danube-1.8b (dense) and
+dispatches, untraced and traced, and once more over a scoring mesh
+(every card where there are two or more, else the one card named twice:
+superbatches split group-wise, every Progress, the dispatch count and
+the traces per arch those of the unsharded fleet), then superbatches of
+n and n + 1 members on that mesh against per-demand scoring. The LM serving path, for h2o-danube-1.8b (dense) and
 then granite-moe-3b-a800m (MoE): the rmsnorm, flash-attention,
 decode-attention and (for granite) grouped expert matmul kernels against
 their plain versions at the shapes serving the model gives them, the
@@ -59,7 +63,12 @@ full-width granite layers on
 the kernel path against the plain path; granite-moe-3b-a800m at its
 published config for 10 AdamW steps of 4 x 1024 tokens through
 ``repro_torch.launch.train`` (the last step traced); and xlstm-125m's
-resume through ``repro_torch.launch.train``, bit for bit. It prints the results, the card's own
+resume through ``repro_torch.launch.train``, bit for bit; and data-parallel
+training over ``torch.distributed`` (2 ranks as processes, NCCL over two
+cards or gloo with both on the one card): a float32 step of 2 full-width
+granite layers against one process on the global batch with 2 MoE groups,
+3 bf16 AdamW steps with the ranks' parameters bit for bit equal after each,
+and one rank through the same path bit for bit the plain trainer. It prints the results, the card's own
 wall-clock numbers, one JSON line with every kernel, and as its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
@@ -110,8 +119,12 @@ from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import scorer_head as sh  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_scoring_mesh  # noqa: E402
 from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.parallel import ops as pops  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train import train_step as steps  # noqa: E402
@@ -215,6 +228,11 @@ RMS_BWD_WIDTHS = (768, 2560)
 LEARN_STEPS, LEARN_WINDOW, LEARN_DROP = 30, 5, 0.5
 RESUME_ARCH = XLSTM_ARCH
 RESUME_BATCH, RESUME_SEQ, RESUME_STEPS = 4, 256, 8
+# data-parallel training (dp_train_phase): 2 ranks on 2 full-width granite
+# layers (wq and wk at their true fan-in), the global batch of 4 x 1024
+# split 2 x 1024 a rank; 3 bf16 AdamW steps; each group of ranks under a
+# time limit
+DP_RANKS, DP_STEPS, DP_TIMEOUT = 2, 3, 420
 # the stacked superbatch: members of a grouped launch checked against the
 # ungrouped kernel (the fleet's group_max is 8), images a member in the
 # check, the head's row counts (the small layer's 20 real rows, the
@@ -992,11 +1010,14 @@ def fleet_phase(device, hours: float = FLEET_HOURS,
     wall_solo = time.perf_counter() - t1
     solo_launches = scoring_counts()
 
-    def fleet_run(trace: bool):
-        rt = runtime()
+    def fleet_run(trace: bool, mesh=None):
+        sched = FleetScheduler(contended=False, mesh=mesh)
+        # with a mesh the fleet scores through a runtime of its own, which
+        # the queries' own scoring shares (as the JAX package's sharded
+        # fleet test runs it), so the dispatch counts compare
+        rt = sched.runtime if mesh is not None else runtime()
         prev = set_runtime(rt)
         bank = banks()
-        sched = FleetScheduler(contended=False)
         for i, (cam, kind, kw) in enumerate(FLEET_SPECS):
             sched.add(f"q{i}", cam, fleet_executor(videos, stores, bank, cam,
                                                    kind, train_steps), **kw)
@@ -1085,7 +1106,102 @@ def fleet_phase(device, hours: float = FLEET_HOURS,
            f"{busy['scorer_head_device_s']:.4f} s), top "
            f"{busy['top_kernels']}" if busy else "not measured") +
           f"; {copy_split(busy)}")
+    # the same fleet over a scoring mesh: superbatches split group-wise
+    devs = mesh_devices(device)
+    mesh = make_scoring_mesh(devs)
+    mres, msched, mrt, mguard, mwall, mlaunches, _ = fleet_run(
+        trace=False, mesh=mesh)
+    for i in range(len(FLEET_SPECS)):
+        check(_progress(mres[f"q{i}"]) == _progress(res[f"q{i}"]),
+              f"sharded fleet query q{i} differs from the unsharded fleet's")
+    mstats = msched.stats
+    check(mstats["dispatches"] == stats["dispatches"],
+          f"dispatches: sharded {mstats['dispatches']}, unsharded "
+          f"{stats['dispatches']}")
+    check(mguard.traces_per_arch == guard.traces_per_arch,
+          f"traces per arch: sharded {mguard.traces_per_arch}, unsharded "
+          f"{guard.traces_per_arch}")
+    check(mstats["sharded"] and mstats["device_count"] == len(devs),
+          f"the sharded fleet's stats {mstats}")
+    check(sum(mrt.slot_parts["super"][1:]) > 0,
+          f"no superbatch was split: {mrt.slot_parts}")
+    out["sharded"] = {
+        "devices": [str(d) for d in devs], "wall_s": mwall,
+        "wall_unsharded_s": wall, "dispatches": mstats["dispatches"],
+        "slot_parts": mrt.slot_parts, "launches": mlaunches,
+        "fallbacks": mrt.sharding_fallbacks(),
+        "traces_per_arch": mguard.traces_per_arch,
+        "group_max": msched.group_max}
+    print(f"sharded fleet over {devs} ("
+          f"{'one device named twice' if len(set(devs)) == 1 else 'one slot a card'}): "
+          f"every Progress equals the unsharded fleet's bit for bit; "
+          f"dispatches {mstats['dispatches']} (unsharded "
+          f"{stats['dispatches']}); traces per arch equal; grouped "
+          f"dispatch parts a slot (one grouped launch a layer each) "
+          f"{mrt.slot_parts['super']}, grouped launches "
+          f"{ {k: v for k, v in mlaunches.items() if 'grouped' in k} } "
+          f"(unsharded { {k: v for k, v in launches.items() if 'grouped' in k} }); "
+          f"fallbacks {mrt.sharding_fallbacks()}; host wall {mwall:.2f} s "
+          f"(unsharded {wall:.2f} s)")
     return out
+
+
+def mesh_devices(device) -> list:
+    """The scoring mesh's slots: every card where there are two or more,
+    else the one device named twice."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    return [f"cuda:{i}" for i in range(n)] if n >= 2 else \
+        [str(device) if device.type != "cuda" else "cuda:0"] * 2
+
+
+class _Trained:
+    def __init__(self, arch, params):
+        self.arch, self.params = arch, params
+
+
+class _Bank:
+    def __init__(self, crops):
+        self._c = crops
+
+    def crops(self, idxs, region, size):
+        return self._c[np.asarray(idxs)]
+
+
+def mesh_probe_phase(device) -> dict:
+    """Superbatches on the scoring mesh of n slots (``mesh_devices``):
+    groups of n members (split, one a slot) and n + 1 (run whole on slot
+    0), each member bit for bit its per-demand scoring, and the one
+    fallback recorded exactly (``tests/_sharded_subprocess.py``'s
+    check)."""
+    devs = mesh_devices(device)
+    n = len(devs)
+    mesh = make_scoring_mesh(devs)
+    rng = np.random.default_rng(7)
+    rt = OperatorRuntime(mesh=mesh)
+    cuda = device.type == "cuda"
+    for g in (n, n + 1):
+        demands = []
+        for k in range(g):
+            a = ops.OperatorArch(f"g{k}", 3, 16, 32, 50)
+            p = ops.init_operator(a, torch.Generator().manual_seed(100 + k),
+                                  device)
+            c = rng.uniform(size=(300, 50, 50, 3)).astype(np.float32)
+            demands.append((_Trained(a, p), _Bank(c), np.arange(300)))
+        want = [(OperatorRuntime() if cuda else OperatorRuntime(
+            device=device)).score_crops(t.params, t.arch, b._c)
+            for t, b, _ in demands]
+        got = rt.score_demands(demands, group_max=g)
+        check(all(np.array_equal(wp, gp) and np.array_equal(wc, gc)
+                  for (wp, wc), (gp, gc) in zip(want, got)),
+              f"a superbatch of {g} on {devs} differs from per-demand "
+              "scoring")
+    fb = rt.sharding_fallbacks()
+    check([(e["axis"], e["dims"]) for e in fb] == [("group", [n + 1])],
+          f"fallbacks {fb}")
+    print(f"mesh probe over {devs}: superbatches of {n} (split, parts a "
+          f"slot {rt.slot_parts['super']}) and {n + 1} (whole on slot 0) "
+          f"bit for bit per-demand scoring; fallbacks {fb}")
+    return {"devices": devs, "slot_parts": rt.slot_parts, "fallbacks": fb}
 
 
 # -- phase 5: the LM kernels at the served shapes ---------------------------
@@ -2326,6 +2442,278 @@ def resume_phase(device) -> dict:
     return out
 
 
+# -- phase 9: data-parallel training over torch.distributed -----------------
+
+def dp_config(smoke: bool, **overrides):
+    """granite-moe-3b-a800m at full width, 2 layers (``smoke``: its smoke
+    config, for a rehearsal on the CPU), and the sequence length."""
+    from repro_torch.configs.base import get_smoke_config
+    if smoke:
+        return get_smoke_config(TRAIN_ARCH).scaled(**overrides), 32
+    return served_config(TRAIN_ARCH, num_layers=2, **overrides), TRAIN_SEQ
+
+
+def dp_model(cfg, device):
+    model = tf.init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                          device, trainable=True)
+    unit_scores(model)
+    return model
+
+
+def dp_parity_batch(cfg, seq) -> dict:
+    """``train_parity_phase``'s global batch: random tokens and labels."""
+    rng = np.random.default_rng(0)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, seq)),
+            "labels": rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, seq))}
+
+
+def dp_f32_step(device, mesh, smoke: bool) -> dict:
+    """One float32 step's loss, gradients and routes of ``dp_parity_batch``
+    (this rank's rows with a mesh over processes; all of it otherwise)."""
+    cfg, seq = dp_config(smoke, compute_dtype="float32")
+    model = dp_model(cfg, device)
+    log, label = [], [("prefill", 0)]
+    with recorded_routes(log, label), steps.deterministic():
+        loss, grads = steps.loss_and_grads(
+            model, dp_parity_batch(cfg, seq), mesh)
+    out = {"loss": loss.cpu(), "routes": [r.cpu() for _, r in log],
+           "grads": {n: g.cpu() for n, g in grads.items()}}
+    del model, grads
+    free_memory()
+    return out
+
+
+def ranks_agree(model, group) -> bool:
+    """Every parameter bit for bit the same on every rank of ``group``."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    same = True
+    for p in model.parameters():
+        parts = [torch.empty_like(p) for _ in range(n)]
+        dist.all_gather(parts, p.detach().contiguous(), group=group)
+        same &= all(torch.equal(parts[0], q) for q in parts[1:])
+    return same
+
+
+def dp_steps(device, mesh, n_steps: int, smoke: bool, keep: bool) -> dict:
+    """``n_steps`` bf16 AdamW steps (``granite_steps``' run, wq and wk at
+    their true fan-in) through ``make_train_step(..., mesh)``: each step's
+    loss, gradient norm, host seconds (ending in a synchronise), the
+    host seconds of its gradient sum, and whether the ranks' parameters
+    agree after it; the parameters after the last step if ``keep``."""
+    from repro_torch.train import data as data_mod
+    cfg, seq = dp_config(smoke)
+    model = dp_model(cfg, device)
+    ostate = opt.init_opt_state(dict(model.named_parameters()))
+    pipe = data_mod.TokenPipeline(data_mod.DataConfig(
+        vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=seq))
+    step = steps.make_train_step(cfg, opt.AdamWConfig(total_steps=n_steps),
+                                 mesh)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    summed, real = [], steps.sum_gradients
+
+    def timed_sum(*args, **kwargs):
+        sync()
+        t = time.perf_counter()
+        real(*args, **kwargs)
+        sync()
+        summed.append(time.perf_counter() - t)
+
+    out = {"losses": [], "norms": [], "step_s": [], "agree": []}
+    steps.sum_gradients = timed_sum
+    try:
+        with steps.deterministic():
+            for i in range(n_steps):
+                sync()
+                t = time.perf_counter()
+                model, ostate, met = step(model, ostate, pipe.batch_at(i))
+                out["losses"].append(met["loss"].cpu())
+                out["norms"].append(met["grad_norm"].cpu())
+                sync()
+                out["step_s"].append(time.perf_counter() - t)
+                out["agree"].append(mesh is None or mesh.group is None or
+                                    ranks_agree(model, mesh.group))
+    finally:
+        steps.sum_gradients = real
+    out["sum_s"] = summed
+    if keep:
+        out["params"] = {n: p.detach().cpu()
+                         for n, p in model.named_parameters()}
+    del model, ostate
+    free_memory()
+    return out
+
+
+def dp_worker(job: dict) -> int:
+    """One rank of ``dp_train_phase`` (``chip_smoke.py --dp-worker JOB``):
+    torchrun's ``RANK`` and ``WORLD_SIZE`` from the environment, the
+    group joined through the job's store; the float32 step, then the
+    bf16 steps; writes the results to the job's ``out``."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if job["device"] == "cuda":
+        device = torch.device(f"cuda:{rank}" if job["backend"] == "nccl"
+                              else "cuda:0")
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device(job["device"])
+    dist.init_process_group(job["backend"], init_method=job["init"],
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=DP_TIMEOUT))
+    try:
+        mesh = make_local_mesh(device)
+        out = {"device": str(device)}
+        out["f32"] = dp_f32_step(device, mesh, job["smoke"])
+        if rank:
+            del out["f32"]["grads"]
+        out["bf16"] = dp_steps(device, mesh, job["steps"], job["smoke"],
+                               keep=False)
+        torch.save(out, job["out"].format(rank=rank))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(tmp: str, world: int, job: dict) -> list:
+    """``world`` ranks of ``dp_worker`` as processes, each under
+    ``DP_TIMEOUT``; any rank's failure fails the phase. Returns each
+    rank's results."""
+    name = f"dp{world}"
+    job = {**job, "init": f"file://{tmp}/{name}_store",
+           "out": f"{tmp}/{name}_" + "{rank}.pt"}
+    path = Path(tmp) / f"{name}.json"
+    path.write_text(json.dumps(job))
+    env = {**os.environ, "WORLD_SIZE": str(world),
+           "PYTHONPATH": str(ROOT / "src")}
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker",
+         str(path)], env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=DP_TIMEOUT))
+            except subprocess.TimeoutExpired:
+                logs.append(("", "timed out"))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"data-parallel rank {r} of {world}: rc "
+              f"{p.returncode}\n{out[-2000:]}\n{err[-6000:]}")
+    return [torch.load(job["out"].format(rank=r)) for r in range(world)]
+
+
+def dp_train_phase(device, smoke: bool = False) -> dict:
+    """Data-parallel training over ``torch.distributed``: ``DP_RANKS``
+    ranks on 2 full-width granite-moe-3b-a800m layers, wq and wk at their
+    true fan-in, each with 2 x 1024 tokens of the global 4 x 1024; NCCL
+    over that many cards where there are as many, else gloo with every
+    rank on the one card (NCCL refuses two ranks on one GPU).
+    (a) One float32 step against one process on the global batch under
+    ``use_mesh`` with ``data_group_count() == 2``, on the kernel path:
+    the loss within 1e-4, every gradient within ``TRAIN_GRAD_TOL`` of
+    its largest entry, at most ``ROUTE_LIMIT`` of the top-8 routes
+    differing (F3's limits). (b) ``DP_STEPS`` bf16 AdamW steps: finite
+    losses, every rank's parameters bit for bit equal after every step.
+    (c) One rank (this process, a group of one) through the distributed
+    path: the plain trainer's ``DP_STEPS`` steps bit for bit."""
+    from repro_torch.launch.mesh import Mesh
+    cuda = device.type == "cuda"
+    cards = torch.cuda.device_count() if cuda else 0
+    backend = "nccl" if cards >= DP_RANKS else "gloo"
+    job = {"backend": backend, "device": "cuda" if cuda else str(device),
+           "steps": DP_STEPS, "smoke": smoke}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(tmp, DP_RANKS, job)
+        t_two = time.perf_counter() - t0
+        # (c) in this process: a group of one rank
+        import torch.distributed as dist
+        from datetime import timedelta
+        dist.init_process_group(backend, init_method=f"file://{tmp}/one",
+                                rank=0, world_size=1,
+                                timeout=timedelta(seconds=DP_TIMEOUT))
+        try:
+            mine = dp_steps(device, make_local_mesh(device), DP_STEPS, smoke,
+                            keep=True)
+        finally:
+            dist.destroy_process_group()
+    t_one = time.perf_counter() - t0 - t_two
+    # (a) the ranks' float32 step against one process on the global batch
+    # with 2 MoE groups
+    global_mesh = Mesh((device,) * DP_RANKS, ("data", "model"),
+                       {"data": DP_RANKS, "model": 1})
+    want = dp_f32_step(device, global_mesh, smoke)
+    got = ranks[0]["f32"]
+    check(all(torch.equal(r["f32"]["loss"], got["loss"]) for r in ranks),
+          "the ranks' losses differ")
+    dloss = abs(float(got["loss"]) - float(want["loss"]))
+    errs = {n: _rel_err(g, want["grads"][n]) for n, g in got["grads"].items()}
+    worst = max(errs, key=errs.get)
+    check(len(want["routes"]) == len(got["routes"]), "routing calls differ")
+    diff = total = 0
+    for i, w in enumerate(want["routes"]):
+        g = torch.cat([r["f32"]["routes"][i] for r in ranks])
+        diff += int((w.sort(dim=-1).values != g.sort(dim=-1).values)
+                    .any(dim=-1).sum())
+        total += w.shape[0]
+    # (c) one rank against the plain trainer
+    plain = dp_steps(device, None, DP_STEPS, smoke, keep=True)
+    same_one = (torch.equal(torch.stack(mine["losses"]),
+                            torch.stack(plain["losses"])) and
+                torch.equal(torch.stack(mine["norms"]),
+                            torch.stack(plain["norms"])) and
+                all(torch.equal(mine["params"][n], p)
+                    for n, p in plain["params"].items()))
+    bf16 = [r["bf16"] for r in ranks]
+    losses = [float(x) for x in bf16[0]["losses"]]
+    out = {"backend": backend, "devices": [r["device"] for r in ranks],
+           "ranks": DP_RANKS, "loss": float(got["loss"]),
+           "loss_global": float(want["loss"]), "dloss": dloss,
+           "max_rel_grad_err": errs[worst], "worst_grad": worst,
+           "routes_compared": total, "routes_differing": diff,
+           "bf16_losses": losses, "bf16_agree": [r["agree"] for r in bf16],
+           "bf16_step_s": bf16[0]["step_s"], "bf16_sum_s": bf16[0]["sum_s"],
+           "plain_step_s": plain["step_s"], "one_rank_step_s": mine["step_s"],
+           "one_rank_bit_for_bit": same_one,
+           "wall_two_ranks_s": t_two, "wall_one_rank_s": t_one}
+    print(f"data-parallel {TRAIN_ARCH} (2 of 32 layers at full width, wq "
+          f"and wk at their true fan-in), {DP_RANKS} ranks over {backend} on "
+          f"{out['devices']}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens split "
+          f"{TRAIN_BATCH // DP_RANKS} rows a rank: (a) float32 step: loss "
+          f"{out['loss']:.6f} vs one process on the global batch with 2 MoE "
+          f"groups {out['loss_global']:.6f}; worst gradient {worst} rel err "
+          f"{errs[worst]:.3e} over {len(errs)} tensors; top-k sets differing "
+          f"{diff} of {total}; (b) bf16 AdamW losses " +
+          " ".join(f"{x:.4f}" for x in losses) + f"; ranks' parameters "
+          f"equal after every step {out['bf16_agree']}; step ms " +
+          " ".join(f"{1e3 * x:.1f}" for x in out["bf16_step_s"]) +
+          "; gradient sum (all-gather + rank-order sum) ms " +
+          " ".join(f"{1e3 * x:.1f}" for x in out["bf16_sum_s"]) +
+          f" (one process, no sum: step ms " +
+          " ".join(f"{1e3 * x:.1f}" for x in plain["step_s"]) +
+          f"); (c) one rank through the distributed path equals the plain "
+          f"trainer's {DP_STEPS} steps bit for bit: {same_one} (one-rank "
+          f"step ms " + " ".join(f"{1e3 * x:.1f}" for x in mine["step_s"]) +
+          f"); the spawned ranks {t_two:.1f} s, the one rank {t_one:.1f} s")
+    check(dloss <= 1e-4, f"data-parallel loss differs by {dloss}")
+    check(errs[worst] <= TRAIN_GRAD_TOL, f"gradient {worst}: {errs[worst]}")
+    check(diff <= ROUTE_LIMIT * total, f"{diff} of {total} routes differ")
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    check(all(all(r["agree"]) for r in bf16),
+          f"the ranks' parameters differ: {out['bf16_agree']}")
+    check(same_one, "one rank through the distributed path differs from "
+          "the plain trainer")
+    free_memory()
+    return out
+
+
 BWD_LINES = (   # (name, source, the forward it differentiates, label)
     ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:38",
      "4096x1536 bfloat16"),
@@ -2388,6 +2776,8 @@ def serve_lm(device, arch: str) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
+        return dp_worker(json.loads(Path(sys.argv[2]).read_text()))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card only",
               file=sys.stderr)
@@ -2423,6 +2813,7 @@ def main() -> int:
     # through the FleetScheduler (untraced, traced)
     fleet = fleet_phase(device)
     print("fleet: " + json.dumps(fleet))
+    print("mesh probe: " + json.dumps(mesh_probe_phase(device)))
     # the LM zoo's path: its kernels at the served shapes, the whole
     # model against its plain path, then the model served, untraced and
     # once more under the profiler; h2o-danube-1.8b, then
@@ -2476,6 +2867,9 @@ def main() -> int:
     train_parity_phase(device)
     training = train_phase(device)
     resume_phase(device)
+    # data-parallel training: 2 ranks against one process on the global
+    # batch, the ranks' bits equal, one rank the plain trainer's bits
+    print("data parallel: " + json.dumps(dp_train_phase(device)))
     # the kernel's line: one 1024-frame chunk of the full-width operator,
     # its five conv layers (the main path's largest dispatch); the bound
     # is the larger of their summed bytes and summed operations' times

@@ -26,11 +26,12 @@ many of them:
     ["overlap_host_s"]``) as host time spent serving the loop while
     dispatches were in flight.
 
-  * **One device.** The JAX package's ``FleetScheduler(mesh=...)``
-    shards superbatches group-wise over a device mesh; the port does
-    not have that yet (``ROADMAP.md`` §2 item 6), so a ``mesh`` that is
-    not None raises ``NotImplementedError`` rather than quietly running
-    on one device.
+  * **Device-parallel scoring.** ``FleetScheduler(mesh=...)`` scores
+    through a fleet-private ``OperatorRuntime(mesh=mesh)``, which splits
+    each stacked superbatch group-wise over the mesh's devices (as the
+    JAX package shards it), every member's bits the single device's;
+    ``group_max`` then defaults to a multiple of the device count
+    (``device_aware_group_max``), so full groups split evenly.
 
   * **Shared cloud verification.** Each ``VerifyDemand`` is stamped
     with the query's identity and routed to a shared
@@ -83,21 +84,14 @@ from repro_torch.serving.oracle_service import OracleService, VerifyTicket
 DEFAULT_GROUP_MAX = 8
 
 
-def device_aware_group_max(base: int = DEFAULT_GROUP_MAX) -> int:
-    """The fused-dispatch high-watermark. The JAX package rounds ``base``
-    up to a multiple of its mesh's device count, so full superbatch
-    groups shard evenly; the port scores on one device (``refuse_mesh``),
-    so this is ``base``."""
-    return base
-
-
-def refuse_mesh(mesh) -> None:
-    """The port scores on one device: a device mesh (``ROADMAP.md`` §2
-    item 6) raises instead of quietly running on one card."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port has no device mesh yet (ROADMAP.md §2 item 6); "
-            "pass mesh=None to score on one device")
+def device_aware_group_max(mesh=None, base: int = DEFAULT_GROUP_MAX) -> int:
+    """The fused-dispatch high-watermark for a mesh: ``base`` rounded up
+    to a multiple of the device count, so full superbatch groups always
+    split evenly over the data axis (a non-dividing group runs whole on
+    one device: correct, but without the mesh's parallelism). With no
+    mesh (or one device) this is just ``base``."""
+    d = mesh.size if mesh is not None else 1
+    return max(base, ((base + d - 1) // d) * d)
 
 
 def make_executor(env: QueryEnv, *, full_family: bool = False, **kw):
@@ -163,10 +157,10 @@ class FleetScheduler:
     ``cloud_ingress_bytes_per_s``
                       aggregate cloud ingress cap (None = unbounded).
     ``group_max``     max demands fused into one runtime dispatch
-                      (default: ``device_aware_group_max``, 8).
-    ``mesh``          must be None: the device mesh is not ported yet
-                      (``ROADMAP.md`` §2 item 6), and any other value
-                      raises ``NotImplementedError``.
+                      (default: ``device_aware_group_max(mesh)``).
+    ``mesh``          a scoring mesh (``launch/mesh.make_scoring_mesh``)
+                      to split superbatches over; None scores on one
+                      device.
     ``on_progress``   ``fn(qid, t, value)`` streamed per refinement.
     ``oracle``        the shared verification service: an
                       ``OracleService`` instance, ``None`` for a
@@ -175,7 +169,8 @@ class FleetScheduler:
                       synchronously — the historical single-query path,
                       kept as the bitwise reference for the routed one.
     ``runtime``       OperatorRuntime override (default: the
-                      process-global one, shared by the whole fleet).
+                      process-global one, shared by the whole fleet;
+                      with ``mesh``, a fleet-private mesh runtime).
     """
 
     def __init__(self, *, runtime: Optional[OperatorRuntime] = None,
@@ -186,7 +181,6 @@ class FleetScheduler:
                  oracle=None,
                  on_progress: Optional[Callable[[str, float, float],
                                                None]] = None):
-        refuse_mesh(mesh)
         self._runtime = runtime
         self.oracle: Optional[OracleService] = \
             None if oracle is False else \
@@ -195,7 +189,7 @@ class FleetScheduler:
         self.contended = contended
         self.cloud_ingress = cloud_ingress_bytes_per_s
         self.group_max = (group_max if group_max is not None
-                          else device_aware_group_max())
+                          else device_aware_group_max(mesh))
         self.on_progress = on_progress
         self.tasks: List[_Task] = []
         self.stats: Dict[str, object] = {}
@@ -206,6 +200,8 @@ class FleetScheduler:
 
     @property
     def runtime(self) -> OperatorRuntime:
+        if self._runtime is None and self.mesh is not None:
+            self._runtime = OperatorRuntime(mesh=self.mesh)
         return self._runtime if self._runtime is not None else get_runtime()
 
     # -- fleet assembly -------------------------------------------------------

@@ -35,8 +35,14 @@ and results stay on the device (``ScoreHandle``) until they are
 consumed: PyTorch's launches are asynchronous, and ``.cpu()`` is the
 synchronisation point.
 
-Not ported yet: the device mesh and its sharding (``mesh_info`` reports
-one device), and CUDA-graph capture per (signature, shape).
+With a device mesh (``OperatorRuntime(mesh=...)``, a 1-D ``("data",)``
+mesh of ``launch/mesh.make_scoring_mesh``) a stacked superbatch whose
+group divides the mesh is split on its group axis, as the JAX package
+places it (``parallel/sharding.superbatch_spec``): each slot scores its
+share of the members on its own device, one grouped launch a layer, and
+the results come back in member order. Each member's computation is
+unchanged, so the bits are the single device's. Not ported yet:
+CUDA-graph capture per (signature, shape).
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ import torch
 
 from repro_torch.core.operators import softplus
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import sharding as shd
 
 ArchSig = Tuple[int, int, int, int]
 
@@ -85,6 +92,31 @@ def sig_str(sig: ArchSig) -> str:
     return f"L{sig[0]}c{sig[1]}d{sig[2]}s{sig[3]}"
 
 
+def tree_map(fn, params):
+    """``fn`` of every tensor of a params tree (dicts, lists, tensors)."""
+    if isinstance(params, dict):
+        return {k: tree_map(fn, v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [tree_map(fn, v) for v in params]
+    return fn(params)
+
+
+def _first_leaf(params) -> torch.Tensor:
+    while not isinstance(params, torch.Tensor):
+        params = next(iter(params.values())) if isinstance(params, dict) \
+            else params[0]
+    return params
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:0`` name one device (the current one)."""
+    def index(d):
+        if d.index is not None or d.type != "cuda":
+            return d.index or 0
+        return torch.cuda.current_device()
+    return a.type == b.type and index(a) == index(b)
+
+
 def stack_params(params: List[dict]) -> dict:
     """The members' params stacked leaf by leaf on a new leading axis
     (the JAX package's ``tree_map(jnp.stack)`` over the group)."""
@@ -98,7 +130,7 @@ def stack_params(params: List[dict]) -> dict:
 
 
 class OperatorRuntime:
-    """Batched operator scoring on one device.
+    """Batched operator scoring on one device or over a device mesh.
 
     ``device``: None means the card (``torch.device("cuda")``); where
     there is none the constructor raises and asks for ``device="cpu"``.
@@ -107,13 +139,47 @@ class OperatorRuntime:
     ``calls`` counts dispatches on every path (one fused superbatch = one
     call), so dispatch numbers are comparable between ``score_crops``
     and ``ScoreBatcher`` scoring and with the JAX package.
+
+    ``mesh``: an optional 1-D ``("data",)`` mesh
+    (``launch/mesh.make_scoring_mesh``; its devices may repeat). When it
+    holds more than one slot, a stacked superbatch whose group divides
+    the slots is split on its group axis: slot k scores members ``[k·g/n,
+    (k+1)·g/n)`` on its device, its input slice copied there (from
+    page-locked memory on the card) and its members' params with it,
+    one grouped launch a layer; the slots' launches are all queued
+    before any result is read. A group that does not divide runs whole
+    on slot 0, recorded for ``sharding_fallbacks()``. Flat (small and
+    bucketed) batches stay on slot 0 unless ``shard_frames=True``, which
+    splits their frames the same way. Every member's and frame's bits
+    are the single device's, and the trace accounting records each
+    dispatch's global (layer, signature, shape), not a slot's share. The
+    runtime's ``device`` is slot 0's.
     """
 
     def __init__(self, *, device: kops.Device = None, chunk: int = CHUNK,
                  min_bucket: int = MIN_BUCKET,
                  small_flops: float = SMALL_FLOPS,
-                 small_quant: int = SMALL_QUANT):
+                 small_quant: int = SMALL_QUANT,
+                 mesh=None, shard_frames: bool = False):
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        if self.mesh is not None:
+            if device is not None and not same_device(
+                    torch.device(device), self.mesh.devices[0]):
+                raise ValueError(f"device {device} is not the mesh's slot 0 "
+                                 f"({self.mesh.devices[0]})")
+            device = self.mesh.devices[0]
         self.device = kops.resolve_device(device)
+        self.device_count = self.mesh.size if self.mesh is not None else 1
+        self.shard_frames = bool(shard_frames)
+        self._fallbacks: List[tuple] = []   # (axis, dim, mapped) records
+        # members' params copied to a slot's device: (id, device) ->
+        # (params, copy), dropped at every ScoreBatcher flush
+        self._placed: Dict[tuple, tuple] = {}
+        # dispatch parts scored a slot, by layer (an unsplit dispatch is
+        # one part on slot 0; a superbatch part is one grouped launch a
+        # layer)
+        self.slot_parts = {kind: [0] * self.device_count
+                           for kind in ("small", "bucketed", "super")}
         self.conv = kops.conv_scorer_fn(self.device)
         self.chunk = int(chunk)
         self.min_bucket = int(min_bucket)
@@ -195,9 +261,19 @@ class OperatorRuntime:
         }
 
     def mesh_info(self) -> Dict[str, object]:
-        """Where scoring ran, in the JAX package's keys: one device, no
-        mesh (``ROADMAP.md`` §2 item 6)."""
-        return {"device_count": 1, "mesh_shape": None, "sharded": False}
+        """Where scoring ran, in the JAX package's keys."""
+        return {
+            "device_count": self.device_count,
+            "mesh_shape": (dict(self.mesh.shape)
+                           if self.mesh is not None else None),
+            "sharded": self.mesh is not None,
+        }
+
+    def sharding_fallbacks(self) -> list:
+        """Summarized divisibility fallbacks hit so far (dims that ran
+        whole on slot 0 instead of splitting), ``explain_fallbacks`` over
+        the raw records."""
+        return shd.explain_fallbacks(self._fallbacks)
 
     # -- dispatch layers -----------------------------------------------------
 
@@ -227,13 +303,27 @@ class OperatorRuntime:
         return np.concatenate(
             [x, np.zeros((to - m,) + x.shape[1:], np.float32)])
 
-    def _dispatch(self, sig: ArchSig, params, x: np.ndarray, *, kind: str):
+    def _dispatch(self, sig: ArchSig, params, x: np.ndarray, *, kind: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``_launch`` of a dispatch that is not split (one slot), its
+        (probs, counts); a superbatch's ``params`` may be the members'
+        stacked params."""
+        if kind == "super" and not isinstance(params, list):
+            params = [tree_map(lambda t, g=g: t[g], params)
+                      for g in range(x.shape[0])]
+        (out,) = self._launch(sig, params, x, kind=kind)
+        return out
+
+    def _launch(self, sig: ArchSig, params, x: np.ndarray, *, kind: str
+                ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Every dispatch funnels through here: counts calls, records the
         shape vocabulary and the first dispatch of each (layer,
         signature, shape), moves the input to the device (from
-        page-locked memory on the card) and runs the scorer body.
-        A superbatch's ``params`` are the members' stacked params.
-        Returns device tensors (the launches are queued, not finished)."""
+        page-locked memory on the card) and runs the scorer body. A
+        superbatch's ``params`` are the members' params, a list.
+        Returns one (probs, counts) of device tensors a slot the
+        dispatch was split over, in order (the launches are queued, not
+        finished)."""
         self.calls += 1
         if kind == "small":
             self.small_calls += 1
@@ -252,23 +342,63 @@ class OperatorRuntime:
             # is done. The page-locked block comes from PyTorch's caching
             # host allocator, which reuses blocks and does not hand one
             # out again before the copy queued from it has finished.
-            xt = xt.pin_memory().to(self.device, non_blocking=True)
+            xt = xt.pin_memory()
             self.pinned_copies += 1
+        slots = self._slots(shape, kind)
+        per = shape[0] // slots
+        outs = []
+        for k in range(slots):
+            dev = self.mesh.devices[k] if slots > 1 else self.device
+            sl = slice(k * per, (k + 1) * per)
+            p = [self._on(m, dev) for m in params[sl]] if kind == "super" \
+                else self._on(params, dev)
+            xs = xt[sl] if slots > 1 else xt
+            xs = xs.to(dev, non_blocking=dev.type == "cuda")
+            with torch.no_grad():
+                outs.append(self._scorer_body(
+                    stack_params(p) if kind == "super" else p, xs))
+            self.slot_parts[kind][k] += 1
+        return outs
+
+    def _slots(self, shape: tuple, kind: str) -> int:
+        """How many slots a dispatch of ``shape`` is split over: the
+        mesh's data axis where its spec shards dim 0, else 1."""
+        if self.mesh is None:
+            return 1
+        if kind == "super":
+            spec = shd.superbatch_spec(shape, self.mesh, self._fallbacks)
+        elif self.shard_frames:
+            spec = shd.frames_spec(shape, self.mesh, self._fallbacks)
         else:
-            xt = xt.to(self.device)
-        with torch.no_grad():
-            return self._scorer_body(params, xt)
+            return 1
+        return self.device_count if spec[0] is not None else 1
+
+    def _on(self, params, dev: torch.device):
+        """``params`` on ``dev``: themselves where they are there, else a
+        copy, made once a (params, device) until the next flush."""
+        if same_device(_first_leaf(params).device, dev):
+            return params
+        key = (id(params), str(dev))
+        hit = self._placed.get(key)
+        if hit is None or hit[0] is not params:
+            hit = (params, tree_map(lambda t: t.to(dev), params))
+            self._placed[key] = hit
+        return hit[1]
+
+    def release_placed(self) -> None:
+        """Drop the params copied to other slots' devices."""
+        self._placed.clear()
 
     def _dispatch_chunk(self, sig: ArchSig, params, x: np.ndarray):
         """One chunk through the lean or bucketed layer (padding as the
-        layer dictates); returns device (probs, counts)."""
+        layer dictates); returns ``_launch``'s parts."""
         m = x.shape[0]
         if self.is_small(sig, m):
             n = self._quantize_small(m)
-            return self._dispatch(sig, params, self._pad_rows(x, n),
-                                  kind="small")
-        return self._dispatch(sig, params, self._pad_rows(x, self._bucket(m)),
-                              kind="bucketed")
+            return self._launch(sig, params, self._pad_rows(x, n),
+                                kind="small")
+        return self._launch(sig, params, self._pad_rows(x, self._bucket(m)),
+                            kind="bucketed")
 
     # -- scoring -------------------------------------------------------------
 
@@ -287,7 +417,7 @@ class OperatorRuntime:
         for i in range(0, n, self.chunk):
             xb = x[i:i + self.chunk]
             m = xb.shape[0]
-            p, c = _Out(*self._dispatch_chunk(sig, params, xb)).to_np()
+            p, c = _Out(self._dispatch_chunk(sig, params, xb)).to_np()
             probs[i:i + m] = p[:m]
             counts[i:i + m] = c[:m]
         return probs, counts
@@ -321,24 +451,27 @@ class OperatorRuntime:
 
 
 class _Out:
-    """One dispatch's device output; copied to float64 numpy once, on
-    first consumption — the copy waits for the launches, so until then
-    the device works while the host goes on. ``on_consume`` (if given)
-    fires at that first conversion (the ScoreBatcher's in-flight count).
+    """One dispatch's device output, one (probs, counts) a slot it was
+    split over; copied to float64 numpy once, on first consumption, the
+    slots' parts joined in order — the copy waits for the launches, so
+    until then the devices work while the host goes on. ``on_consume``
+    (if given) fires once, at that first conversion (the ScoreBatcher's
+    in-flight count).
     """
 
-    __slots__ = ("p", "c", "_np", "_cb")
+    __slots__ = ("parts", "_np", "_cb")
 
-    def __init__(self, p, c, on_consume: Optional[Callable] = None):
-        self.p, self.c = p, c
+    def __init__(self, parts, on_consume: Optional[Callable] = None):
+        self.parts = parts
         self._np: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._cb = on_consume
 
     def to_np(self) -> Tuple[np.ndarray, np.ndarray]:
         if self._np is None:
-            self._np = (self.p.cpu().numpy().astype(np.float64),
-                        self.c.cpu().numpy().astype(np.float64))
-            self.p = self.c = None          # free the device buffers
+            self._np = tuple(np.concatenate(
+                [t.cpu().numpy() for t in ts]).astype(np.float64)
+                for ts in zip(*self.parts))
+            self.parts = None               # free the device buffers
             if self._cb is not None:
                 self._cb()
                 self._cb = None
@@ -415,10 +548,10 @@ class ScoreBatcher:
         """Chunks queued but not yet dispatched."""
         return sum(len(q) for q in self._queues.values())
 
-    def _out(self, p, c) -> _Out:
+    def _out(self, parts) -> _Out:
         """Wrap one dispatch's device tensors with in-flight tracking."""
         self.in_flight += 1
-        return _Out(p, c, on_consume=self._consumed)
+        return _Out(parts, on_consume=self._consumed)
 
     def _consumed(self) -> None:
         self.in_flight -= 1
@@ -441,8 +574,8 @@ class ScoreBatcher:
             m = x.shape[0]
             handle._chunks += 1
             if self.group_max == 1 or rt.is_small(sig, m):
-                p, c = rt._dispatch_chunk(sig, trained.params, x)
-                handle._add_part(i, m, self._out(p, c), None)
+                out = self._out(rt._dispatch_chunk(sig, trained.params, x))
+                handle._add_part(i, m, out, None)
                 continue
             b = rt._bucket(m)
             q = self._queues.setdefault((sig, b), [])
@@ -474,18 +607,18 @@ class ScoreBatcher:
             if q:
                 self._dispatch_group(sig, q)
         self._queues.clear()
+        self.rt.release_placed()
 
     def _dispatch_group(self, sig: ArchSig, group: List[tuple]) -> None:
         rt = self.rt
         if len(group) == 1:
             handle, off, m, params, x = group[0]
-            p, c = rt._dispatch(sig, params, x, kind="bucketed")
-            handle._add_part(off, m, self._out(p, c), None)
+            out = self._out(rt._launch(sig, params, x, kind="bucketed"))
+            handle._add_part(off, m, out, None)
             return
-        stacked = stack_params([g[3] for g in group])
         xs = np.stack([g[4] for g in group])
-        ps, cs = rt._dispatch(sig, stacked, xs, kind="super")
-        out = self._out(ps, cs)
+        out = self._out(rt._launch(sig, [g[3] for g in group], xs,
+                                   kind="super"))
         for row, (handle, off, m, _params, _x) in enumerate(group):
             handle._add_part(off, m, out, row)
 

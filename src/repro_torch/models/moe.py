@@ -12,9 +12,19 @@ The JAX package pads the experts to its 16-way expert-parallel axis
 (``padded_experts``) and pins the dead experts' router logits to -1e30,
 so their probabilities are exactly 0 and they are never routed to. The
 port runs on one card and keeps only the real experts
-(``real_experts``), which changes no output and no aux loss. It runs
-one dispatch group: ``repro/parallel/ops.py::data_group_count`` is 1
-without a mesh, and ``shard`` is a no-op there.
+(``real_experts``), which changes no output and no aux loss.
+
+Tokens are routed within ``G`` groups, as in the JAX package: ``G`` is
+the installed mesh's data-parallel shard count
+(``parallel/ops.data_group_count``; 1 without a mesh), or 1 where the
+tokens do not divide into groups of at least ``n_experts``. Each group
+sorts its own (token, expert) entries and has its own capacity; the G
+groups' capacity rows are stacked on the capacity axis, ``(E, G·cap,
+d)``, so each expert product is still one ``moe_gmm`` launch. Under a
+mesh whose data axis spans processes (data-parallel training), a rank
+holds the groups of its own rows (one a rank), and the aux losses'
+router statistics are summed over the ranks (``parallel/ops.
+gather_sum``), so every rank computes the global losses.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.parallel import ops as pops
 
 
 def padded_experts(e: int, ep: int = 16) -> int:
@@ -71,14 +82,24 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
 def aux_losses(logits: torch.Tensor, probs: torch.Tensor,
                gate_i: torch.Tensor, n_experts: int):
     """Switch-style load-balance loss and router z-loss, float32, from
-    ``route``'s logits, probabilities and experts."""
+    ``route``'s logits, probabilities and experts. Under a mesh over
+    processes the expert densities, the top-1 counts and the z-loss are
+    summed over the ranks first (one gather), so the losses are those of
+    the global batch on every rank."""
     T, E = probs.shape
     density = probs.mean(dim=0)
     top1 = torch.zeros(E, dtype=torch.float32, device=probs.device)
     top1.index_add_(0, gate_i[:, 0],                 # counts: exact sums
                     torch.ones(T, dtype=torch.float32, device=probs.device))
-    lb_loss = (top1 / T * density).sum() * n_experts
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
+    group = pops.data_process_group()
+    if group is not None:
+        n = pops.data_ranks(group)
+        stats = pops.gather_sum(torch.cat([density, top1, z_loss[None]]),
+                                group)
+        density, top1, z_loss = stats[:E] / n, stats[E:2 * E], stats[-1] / n
+        T = T * n
+    lb_loss = (top1 / T * density).sum() * n_experts
     return lb_loss, z_loss
 
 
@@ -111,31 +132,50 @@ def moe_ffn(x: torch.Tensor, params: Mapping, *, n_experts: int,
     xf = x.reshape(T, d)
     logits, probs, gate_w, gate_i = route(xf, router, k)
 
-    # ---- sort-based dispatch into per-expert capacity rows ----
+    # ---- grouped sort-based dispatch into per-expert capacity rows ----
+    G = pops.local_group_count()
+    if pops.data_process_group() is not None and T // G < n_experts:
+        raise ValueError(f"a rank routes {T // G} tokens a group, fewer "
+                         f"than the {n_experts} experts; the global "
+                         "program would route them in one group")
+    if T % G or T // G < max(n_experts, 1):
+        G = 1                                  # tiny decode batches
+    Tg = T // G
     dev = x.device
     e_flat = gate_i.reshape(T * k)                         # token-major
-    order = torch.argsort(e_flat, stable=True)
-    se = e_flat[order]
+    # group-major, then expert: each group's entries sorted by expert in
+    # token order, as the JAX package's per-group stable sort (one group:
+    # the expert alone, and no extra operations on the serving path)
+    key = e_flat if G == 1 else torch.div(
+        torch.arange(T * k, device=dev), Tg * k, rounding_mode="floor") * E \
+        + e_flat
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    se = sk if G == 1 else sk % E
     st = torch.div(order, k, rounding_mode="floor")        # tokens
     sw = gate_w.reshape(T * k)[order]
-    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
-        0, e_flat, torch.ones_like(e_flat))
+    counts = torch.zeros(G * E, dtype=torch.long, device=dev).index_add_(
+        0, key, torch.ones_like(key))
     starts = counts.cumsum(0) - counts
-    pos = torch.arange(T * k, device=dev) - starts[se]
-    cap = max(8, int(-(-T * k * capacity_factor // max(n_experts, 1))))
+    pos = torch.arange(T * k, device=dev) - starts[sk]
+    cap = max(8, int(-(-Tg * k * capacity_factor // max(n_experts, 1))))
     keep = pos < cap
-    # expert e's capacity rows are buf[e * cap: (e + 1) * cap]; dropped
-    # entries go to the trash row E * cap, which is cut off
-    slot = torch.where(keep, se * cap + pos, E * cap)
-    buf = torch.zeros(E * cap + 1, d, dtype=cdt, device=dev)
+    # expert e's capacity rows are buf[e * G·cap: (e + 1) * G·cap], group
+    # g's cap of them at g * cap; dropped entries go to the trash row
+    # E * G·cap, which is cut off
+    rows_e = G * cap
+    base = se * rows_e if G == 1 else \
+        se * rows_e + torch.div(sk, E, rounding_mode="floor") * cap
+    slot = torch.where(keep, base + pos, E * rows_e)
+    buf = torch.zeros(E * rows_e + 1, d, dtype=cdt, device=dev)
     buf[slot] = xf[st] * keep[:, None].to(cdt)
-    buf = buf[:E * cap].view(E, cap, d)
+    buf = buf[:E * rows_e].view(E, rows_e, d)
 
     h = F.silu(ops.moe_gmm(buf, params["wg"])) * ops.moe_gmm(buf,
                                                              params["wu"])
-    out_buf = ops.moe_gmm(h, params["wo"]).view(E * cap, d)
+    out_buf = ops.moe_gmm(h, params["wo"]).view(E * rows_e, d)
 
-    gathered = out_buf[se * cap + pos.clamp_max(cap - 1)]
+    gathered = out_buf[base + pos.clamp_max(cap - 1)]
     contrib = gathered * (sw * keep).to(cdt)[:, None]      # sorted order
     # each token's k contributions, added in the compute type in sorted
     # order (ascending expert), as the JAX package's scatter-add runs

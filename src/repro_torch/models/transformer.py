@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.kernels.ops import Device, resolve_device
 from repro_torch.models import attention, layers, moe, ssm, xlstm
+from repro_torch.parallel import ops as pops
 
 Caches = List[Dict]
 
@@ -390,12 +391,19 @@ def train_loss(model: Transformer, batch: Dict) -> torch.Tensor:
     """batch: ``tokens`` and ``labels`` (B, S), optional
     ``prefix_embeds`` (B, P, d) -> ``nll + 0.01 lb + 0.001 z``, float32
     (``repro/models/transformer.py::train_loss``): the prefix positions
-    are sliced off before the chunked cross-entropy."""
+    are sliced off before the chunked cross-entropy. Under a mesh over
+    processes (data-parallel training) the batch is this rank's rows and
+    the loss is the global batch's, the same on every rank."""
     prefix = batch.get("prefix_embeds")
     x, (lb, z) = forward_hidden(model, batch["tokens"], prefix)
     npfx = 0 if prefix is None else prefix.shape[1]
     nll = layers.chunked_xent(x[:, npfx:], model._table(), batch["labels"],
                               model.cfg.logit_chunk)
+    if pops.data_process_group() is not None:
+        # data-parallel: every rank holds as many tokens, so the global
+        # mean is the mean of the ranks' means (the aux losses are global
+        # already, models/moe.py)
+        nll = pops.gather_sum(nll) / pops.data_ranks()
     return nll + AUX_LB_WEIGHT * lb + AUX_Z_WEIGHT * z
 
 

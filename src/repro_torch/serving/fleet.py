@@ -22,8 +22,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core import landmarks as lm_mod
-from repro_torch.core.fleet import (FleetScheduler, make_executor,
-                                    refuse_mesh)
+from repro_torch.core.fleet import FleetScheduler, make_executor
 from repro_torch.core.query import Progress, Query, make_env
 from repro_torch.core.training import FrameBank
 from repro_torch.core.video import Video
@@ -37,7 +36,6 @@ class FleetService:
                  group_max: Optional[int] = None,
                  full_family: bool = False,
                  train_steps: int = 150, mesh=None, oracle=None):
-        refuse_mesh(mesh)
         self.contended = contended
         self.cloud_ingress = cloud_ingress_bytes_per_s
         # None defers to the scheduler's device-aware default; see

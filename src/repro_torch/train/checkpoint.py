@@ -14,6 +14,11 @@ Ported from ``repro/train/checkpoint.py``:
   * ``keep`` rotation bounds disk; ``restore_latest`` tolerates a
     corrupt newest checkpoint by falling back to the previous one.
 
+Under data parallelism (``group``: a ``torch.distributed`` process
+group) rank 0 writes and every rank waits at a barrier until it has, so
+no rank runs ahead of a checkpoint that a restart would read; every
+rank restores from the same directory.
+
 A tree is nested dicts and NamedTuples (``OptState``) whose leaves are
 tensors, NumPy arrays or Python numbers. NumPy has no bfloat16: a
 bfloat16 tensor is stored as its 16 bits (int16) with ``bfloat16`` as
@@ -83,8 +88,15 @@ def _from_numpy(arr: np.ndarray, dtype: str, want):
 
 
 def save(ckpt_dir: str, step: int, tree, *, extra: Optional[dict] = None,
-         keep: int = 3) -> Path:
-    """Atomic checkpoint save. Returns the committed directory."""
+         keep: int = 3, group=None) -> Path:
+    """Atomic checkpoint save. Returns the committed directory. With a
+    process ``group``, rank 0 saves and every rank returns after it has."""
+    if group is not None:
+        import torch.distributed as dist
+        if dist.get_rank(group) == 0:
+            save(ckpt_dir, step, tree, extra=extra, keep=keep)
+        dist.barrier(group=group)
+        return Path(ckpt_dir) / f"step_{step:09d}"
     root = Path(ckpt_dir)
     root.mkdir(parents=True, exist_ok=True)
     tmp = root / f"step_{step:09d}.tmp"

@@ -11,17 +11,32 @@ training path's setting on the card: index backward passes (the
 embedding lookup's, the MoE dispatch's gather of a token's k copies)
 scatter with float atomics unless PyTorch's deterministic algorithms
 are on, and a resumed run must repeat an uninterrupted one bit for bit.
+
+Data parallelism (``make_train_step(..., mesh=...)`` with a mesh of
+``launch/mesh.make_local_mesh`` over the ranks of ``torch.distributed``):
+each rank takes its rows of the global batch (``shard_batch``), runs the
+JAX package's program for them under ``parallel/ops.use_mesh`` (its MoE
+dispatch one group of the rank's tokens; the loss's means and the router
+statistics summed over the ranks, so each rank's gradient is its share
+of the global one), and the ranks' gradients are summed in a fixed order
+(``sum_gradients``): all-gathered in buckets and added rank 0 first in
+float32, so every rank holds the same bits whatever the collective's
+reduction tree, and clipping and AdamW then update every rank alike.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.models import transformer
+from repro_torch.parallel import ops as pops
+from repro_torch.parallel import sharding
 from repro_torch.train import optimizer as opt
+
+BUCKET_BYTES = 256 << 20      # a rank's share of one gradient all-gather
 
 
 @contextlib.contextmanager
@@ -65,22 +80,103 @@ def _check(cfg, model) -> None:
                          f"{model.cfg.name} or another config of it")
 
 
-def make_train_step(cfg, opt_cfg: opt.AdamWConfig):
+def shard_batch(mesh, batch: Mapping) -> Dict:
+    """This rank's rows of a global batch: rows ``[r·B/n, (r+1)·B/n)`` of
+    every leaf that ``sharding.data_batch_specs`` splits on dim 0 over the
+    mesh's data axis of n processes. A batch leaf whose rows do not
+    divide raises: replicated, its gradient would be added n times."""
+    if mesh is None or mesh.group is None:
+        return dict(batch)
+    n, r = mesh.processes, mesh.rank
+    specs = sharding.data_batch_specs(mesh, batch)
+    out = {}
+    for k, v in batch.items():
+        if not specs[k] or specs[k][0] is None:
+            raise ValueError(f"the batch's {k} {tuple(v.shape)} does not "
+                             f"divide over {n} data-parallel ranks")
+        b = v.shape[0] // n
+        out[k] = v[r * b:(r + 1) * b]
+    return out
+
+
+@torch.no_grad()
+def sum_gradients(grads: Mapping[str, torch.Tensor], group,
+                  bucket_bytes: int = BUCKET_BYTES) -> None:
+    """Every gradient replaced, in place, by its sum over the ranks of
+    ``group``: the gradients, flattened in their order, are all-gathered
+    in float32 buckets of at most ``bucket_bytes`` a rank and added rank
+    0 first, so every rank gets the same bits."""
+    n = torch.distributed.get_world_size(group)
+    if not all(g.is_contiguous() for g in grads.values()):
+        raise ValueError("the gradients are summed in place: each must be "
+                         "contiguous")
+    views = [g.view(-1) for g in grads.values()]
+    total = sum(v.numel() for v in views)
+    if not total:
+        return
+    room = max(bucket_bytes // 4, 1)
+    dev = views[0].device
+    i, off = 0, 0               # the view and the offset the next bucket starts at
+    while i < len(views):
+        pieces, size = [], 0    # (view, start, count) a bucket holds
+        while i < len(views) and size < room:
+            take = min(views[i].numel() - off, room - size)
+            pieces.append((views[i], off, take))
+            size += take
+            off += take
+            if off == views[i].numel():
+                i, off = i + 1, 0
+        send = torch.empty(size, dtype=torch.float32, device=dev)
+        o = 0
+        for v, start, k in pieces:
+            send[o:o + k] = v[start:start + k]
+            o += k
+        parts = [torch.empty_like(send) for _ in range(n)]
+        torch.distributed.all_gather(parts, send, group=group)
+        acc = parts[0]
+        for part in parts[1:]:
+            acc += part
+        o = 0
+        for v, start, k in pieces:
+            v[start:start + k] = acc[o:o + k]
+            o += k
+        del send, parts, acc
+
+
+def loss_and_grads(model, batch, mesh=None):
+    """The loss of ``batch`` and every parameter's gradient (a dict in
+    ``named_parameters`` order, zeros for a parameter the loss does not
+    reach). With a mesh over processes: this rank's rows, the global
+    loss, and the gradients summed over the ranks."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    batch = to_batch(shard_batch(mesh, batch), model.device)
+    ctx = pops.use_mesh(mesh, sharding.default_rules(mesh)) \
+        if mesh is not None else contextlib.nullcontext()
+    with ctx:
+        loss = transformer.train_loss(model, batch)
+        loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    if mesh is not None and mesh.group is not None:
+        sum_gradients(grads, mesh.group)
+    return loss.detach(), grads
+
+
+def make_train_step(cfg, opt_cfg: opt.AdamWConfig, mesh=None):
+    """``mesh``: None for one process, or a mesh of
+    ``launch/mesh.make_local_mesh`` (data-parallel over its ranks)."""
     def train_step(model, opt_state: opt.OptState, batch):
         _check(cfg, model)
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        loss = transformer.train_loss(model, to_batch(batch, model.device))
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
+        loss, grads = loss_and_grads(model, batch, mesh)
         _, opt_state, metrics = opt.apply_updates(
-            opt_cfg, params, grads, opt_state, decay=model.decay_mask())
-        for p in params.values():
-            p.grad = None
+            opt_cfg, dict(model.named_parameters()), grads, opt_state,
+            decay=model.decay_mask())
         del grads
-        return model, opt_state, dict(metrics, loss=loss.detach())
+        return model, opt_state, dict(metrics, loss=loss)
     return train_step
 
 

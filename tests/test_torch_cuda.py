@@ -1070,3 +1070,72 @@ def test_training_steps_on_the_card(cuda, tmp_path):
     assert rms.rmsnorm_bwd.launches - counts[0] == 2 * (2 * L + 1)
     assert fa.flash_attention_bwd.launches - counts[1] == 2 * L
     assert gmm.moe_gmm_bwd.launches - counts[2] == 2 * 3 * L * 2
+
+
+def test_superbatch_split_over_one_card_twice(cuda):
+    """A superbatch of 4 members split over the scoring mesh
+    ``["cuda:0", "cuda:0"]`` (two members a slot, each slot one grouped
+    launch a layer) gives every member the unsplit superbatch's bits."""
+    from repro_torch.launch.mesh import make_scoring_mesh
+    sig = (3, 16, 32, 50)
+    arch = ops.OperatorArch("split", *sig)
+    params = [ops.init_operator(arch, torch.Generator().manual_seed(g))
+              for g in range(4)]
+    x = np.random.default_rng(4).uniform(
+        size=(4, 256, 50, 50, 3)).astype(np.float32)
+    whole = rt_mod.OperatorRuntime()
+    wp, wc = whole._dispatch(sig, params, x, kind="super")
+    split = rt_mod.OperatorRuntime(
+        mesh=make_scoring_mesh(["cuda:0", "cuda:0"]))
+    before = cs.conv_scorer.grouped_launches
+    parts = split._launch(sig, params, x, kind="super")
+    torch.cuda.synchronize()
+    assert len(parts) == 2 and split.slot_parts["super"] == [1, 1]
+    assert cs.conv_scorer.grouped_launches - before == 2 * sig[0]
+    assert split.sharding_fallbacks() == []
+    gp = torch.cat([p for p, _ in parts])
+    gc = torch.cat([c for _, c in parts])
+    assert torch.equal(gp, wp) and torch.equal(gc, wc)
+
+
+def test_one_rank_distributed_step_is_the_plain_step(cuda, tmp_path):
+    """Three AdamW steps of granite-moe-3b-a800m's smoke config through a
+    1-rank gloo group (the data-parallel path: the router statistics and
+    the loss gathered, the gradients all-gathered and summed) give every
+    loss and parameter the plain trainer's bits."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+
+    def run(mesh):
+        model = tf.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                              cuda, trainable=True)
+        ostate = opt.init_opt_state(dict(model.named_parameters()))
+        pipe = data_mod.TokenPipeline(data_mod.DataConfig(
+            vocab_size=cfg.vocab_size, batch=2, seq_len=128))
+        step = steps.make_train_step(cfg, opt.AdamWConfig(total_steps=3),
+                                     mesh)
+        losses = []
+        with steps.deterministic():
+            for i in range(3):
+                model, ostate, m = step(model, ostate, pipe.batch_at(i))
+                losses.append(m["loss"])
+        return losses, {n: p.detach().clone()
+                        for n, p in model.named_parameters()}
+
+    plain = run(None)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=60))
+    try:
+        mesh = make_local_mesh(cuda)
+        assert mesh.group is not None and mesh.processes == 1
+        one = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(plain[0], one[0]))
+    assert all(torch.equal(plain[1][n], one[1][n]) for n in plain[1])

@@ -189,9 +189,13 @@ def test_fleet_service_streams_progress(world):
 
 
 def test_mesh_raises():
-    """The port has no device mesh yet: asking for one raises instead of
-    quietly scoring on one device."""
-    with pytest.raises(NotImplementedError, match="§2 item 6"):
-        FleetScheduler(mesh=object())
-    with pytest.raises(NotImplementedError, match="§2 item 6"):
-        FleetService(mesh=object())
+    """A scoring mesh runs on its slot 0: a runtime asked for another
+    device raises rather than scoring somewhere else; the scheduler and
+    the service take the mesh (``tests/test_torch_sharded_scoring.py``
+    holds the sharded fleet to this one)."""
+    from repro_torch.launch.mesh import make_scoring_mesh
+    mesh = make_scoring_mesh(["cpu", "cpu"])
+    with pytest.raises(ValueError, match="slot 0"):
+        OperatorRuntime(device="meta", mesh=mesh)
+    assert FleetScheduler(mesh=mesh).runtime.mesh is mesh
+    assert FleetService(mesh=mesh).mesh is mesh

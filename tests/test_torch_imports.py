@@ -48,7 +48,9 @@ def test_no_jax_or_repro_import_in_the_port_source():
             "repro_torch.models.xlstm", "repro_torch.train.optimizer",
             "repro_torch.train.train_step", "repro_torch.train.checkpoint",
             "repro_torch.train.data", "repro_torch.train.elastic",
-            "repro_torch.launch.train"} <= set(MODULES)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.parallel.sharding",
+            "repro_torch.parallel.ops"} <= set(MODULES)
     bad = []
     for path in FILES:
         for name in _imported(ast.parse(path.read_text())):
