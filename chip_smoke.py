@@ -68,7 +68,14 @@ training over ``torch.distributed`` (2 ranks as processes, NCCL over two
 cards or gloo with both on the one card): a float32 step of 2 full-width
 granite layers against one process on the global batch with 2 MoE groups,
 3 bf16 AdamW steps with the ranks' parameters bit for bit equal after each,
-and one rank through the same path bit for bit the plain trainer. It prints the results, the card's own
+and one rank through the same path bit for bit the plain trainer. Then the
+dry run (``repro_torch.launch.dryrun``): one cell of each kind counted on
+PyTorch's ``meta`` device on the ``card`` and ``node`` meshes, the ``pod``
+and ``multipod`` placements of every cell, and three cells executed on the
+card (h2o-danube-1.8b's 32k prefill at batch 1 and its decode tick at
+batch 8, granite-moe-3b-a800m's 4k training step cut to 2 layers at batch
+4), each counted on the card exactly as on ``meta`` and timed against its
+roofline terms (a share above 1 fails). It prints the results, the card's own
 wall-clock numbers, one JSON line with every kernel, and as its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
@@ -129,11 +136,10 @@ from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train import train_step as steps  # noqa: E402
 
-# H100 SXM data sheet: fp32 outside the tensor cores, bf16 dense on the
-# tensor cores, and HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
+# H100 SXM data sheet (the dry run's hardware model): fp32 outside the
+# tensor cores, bf16 dense on the tensor cores, and HBM3 bandwidth
+from repro_torch.launch.dryrun import (PEAK_BF16_FLOPS,  # noqa: E402
+                                       PEAK_BYTES_PER_S, PEAK_FP32_FLOPS)
 KERNEL_TOL = 1e-4            # tests/test_kernels.py's conv_scorer tolerance
 SCORE_TOL = 1e-5
 N = 1024                     # OperatorRuntime.CHUNK: the largest dispatch
@@ -306,23 +312,12 @@ def layers(sig):
     return out
 
 
-def valid_taps(h, stride=2):
-    """Kernel taps along one axis that land inside the image, summed over
-    the outputs: the taps on SAME padding multiply zeros and are skipped."""
-    ho, top, _ = ref.same_pad(h, stride)
-    return sum(0 <= o * stride - top + k < h
-               for o in range(ho) for k in range(3))
-
-
 def conv_bound(n, h, cin, cout):
     """Least time (ms) of one conv_scorer call and what sets it: bytes
     (x, w, b read once, out written once) over the memory rate, or fp32
     operations (2*Cin per in-bounds tap of each output) over the fp32
-    peak."""
-    ho = -(-h // 2)
-    flops = 2.0 * cin * cout * n * valid_taps(h) ** 2
-    nbytes = 4.0 * (n * h * h * cin + 9 * cin * cout + cout +
-                    n * ho * ho * cout)
+    peak (``conv_scorer.cost``)."""
+    flops, nbytes = cs.cost((n, h, h, cin), cout)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
@@ -532,9 +527,7 @@ def head_phase(device) -> dict:
         fn = (lambda: sh.scorer_head(*args)) if name == "kernel" else \
             (lambda: ref.scorer_head(*args))
         t[name].append(time_ms(fn, iters=50, lead_cycles=LEAD_CYCLES))
-    flops = 2.0 * m * dense * (feat + 2)
-    nbytes = 4.0 * (m * feat + feat * dense + dense + 2 * dense + 2 + 2 * m)
-    bound, by = _bound(flops, nbytes, torch.float32)
+    bound, by = _bound(*sh.cost(m, feat, dense), torch.float32)
     row = {"max_abs_err": err, "ms": float(np.mean(t["kernel"])),
            "plain_ms": float(np.mean(t["plain"])), "library_ms": None,
            "bound_ms": bound, "bound_by": by}
@@ -699,9 +692,7 @@ def grouped_kernel_phase(device) -> dict:
         runs[name].append(time_ms(fns[name], iters=50,
                                   lead_cycles=LEAD_CYCLES))
     th = {k: float(np.mean(v)) for k, v in runs.items()}
-    bound_h, by_h = _bound(q * 2.0 * m * dense * (feat + 2),
-                           q * 4.0 * (m * feat + feat * dense + dense +
-                                      2 * dense + 2 + 2 * m), torch.float32)
+    bound_h, by_h = _bound(*sh.cost(m, feat, dense, q), torch.float32)
     head = {"members": q, "ms": th["kernel"], "single_x8_ms": th["single"],
             "plain_ms": th["plain"], "bound_ms": bound_h, "bound_by": by_h,
             "max_abs_err": head_err, "max_member_diff": head_worst}
@@ -1233,13 +1224,6 @@ def _bound(flops, nbytes, dtype):
                                        else "bytes")
 
 
-def _kept_pairs(sq, sk, window, q_offset=0):
-    """(q, k) pairs that causal attention with this window keeps."""
-    pos = np.arange(sq, dtype=np.int64) + q_offset
-    lo = np.maximum(0, pos - window + 1) if window else np.zeros_like(pos)
-    return int(np.sum(np.minimum(pos, sk - 1) - lo + 1))
-
-
 def _row(name, what, err, t, bound, by, rel=None):
     row = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
            "library_ms": t["library"], "bound_ms": bound, "bound_by": by,
@@ -1283,9 +1267,7 @@ def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
         t = _in_turns(lambda: rms.rmsnorm(x, scale),
                       lambda: ref.rmsnorm(x, scale),
                       lambda: F.rms_norm(x, (d,), lib_w, 1e-6), iters=50)
-        size = x.element_size()
-        bound, by = _bound(3.0 * x.numel(), 2 * x.numel() * size + 4 * d,
-                           dt)
+        bound, by = _bound(*rms.cost(x.shape, dt), dt)
         label = f"{rows_}x{d} {str(dt)[6:]}"
         rows[("rmsnorm", label)] = _row("rmsnorm", label, err, t, bound, by)
 
@@ -1316,10 +1298,7 @@ def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
                                                  window=W),
                       lambda: ref.attention(q, k, v, causal=True, window=W),
                       library, iters=3 if S > 4096 else 10)
-        pairs = _kept_pairs(S, S, W)
-        bound, by = _bound(4.0 * D * H * pairs,
-                           (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                           dt)
+        bound, by = _bound(*fa.cost(q.shape, k.shape, dt, window=W), dt)
         label = f"B=1 S={S}{heads} {str(dt)[6:]}"
         rows[("flash_attention", label)] = _row("flash_attention", label,
                                                 err, t, bound, by)
@@ -1352,10 +1331,8 @@ def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
                       lambda: ref.decode_attention(q, k, v, tpos),
                       lambda: F.scaled_dot_product_attention(
                           qt, kt, vt, attn_mask=valid), iters=50)
-        size = q.element_size()
-        nbytes = (2 * int(n_valid.sum()) * KV * D + 2 * q.numel()) * size \
-            + 4 * B
-        bound, by = _bound(4.0 * D * H * int(n_valid.sum()), nbytes, dt)
+        bound, by = _bound(*da.cost(q.shape, k.shape, dt,
+                                    n_valid=int(n_valid.sum())), dt)
         split = da.split_rows(S, D, H // KV, dt)
         label = (f"B=8 S=4096{heads} split {split} pos {pos.tolist()} "
                  f"{str(dt)[6:]}")
@@ -1397,9 +1374,7 @@ def moe_kernel_phase(device, arch: str = MOE_ARCH, caps=GMM_CAPS,
                 t = _in_turns(lambda: gmm.moe_gmm(x, w),
                               lambda: ref.moe_gmm(x, w),
                               lambda: torch.bmm(x, w), iters=20)
-                bound, by = _bound(2.0 * E * C * d * f,
-                                   (x.numel() + w.numel() + E * C * f)
-                                   * x.element_size(), dt)
+                bound, by = _bound(*gmm.cost(x.shape, f, dt), dt)
                 label = f"E={E} C={C} {d}->{f} {str(dt)[6:]}"
                 rows[("moe_gmm", label)] = _row("moe_gmm", label, err, t,
                                                 bound, by)
@@ -2109,7 +2084,7 @@ def rms_bwd_row(device, R, d, dt) -> dict:
     copy), timed beside the plain version and ``F.rms_norm``'s backward;
     the bound is x and dy read and dx written once (the partial rows of
     dscale are the design's own traffic, not counted)."""
-    size, name = (2 if dt == torch.bfloat16 else 4), str(dt)[6:]
+    name = str(dt)[6:]
     x = _randn((R, d), dt, device, 1) * 3
     scale = 1 + 0.1 * _randn((d,), torch.float32, device, 2)
     dy = _randn((R, d), dt, device, 3)
@@ -2128,7 +2103,7 @@ def rms_bwd_row(device, R, d, dt) -> dict:
                   lambda: ref.rmsnorm_bwd(x, scale, dy),
                   _library_grad(lambda a, w: F.rms_norm(a, (d,), w, 1e-6),
                                 (x, scale.to(dt)), dy), iters=20)
-    bound, by = _bound(10.0 * R * d, 3 * R * d * size + 8 * d, dt)
+    bound, by = _bound(*rms.bwd_cost(x.shape, dt), dt)
     label = f"{R}x{d} {name}"
     print(f"rmsnorm_bwd {label}: one call is one kernel node "
           f"({demangle(nodes)[nodes[0]].split('(')[0]})")
@@ -2155,7 +2130,7 @@ def bwd_kernel_phase(device) -> dict:
                    cfg.resolved_head_dim)
     rows = {}
     for dt in (torch.bfloat16, torch.float32):
-        size, name = (2 if dt == torch.bfloat16 else 4), str(dt)[6:]
+        name = str(dt)[6:]
         R = TRAIN_BATCH * TRAIN_SEQ
         for width in (d,) + RMS_BWD_WIDTHS:
             rows.update(rms_bwd_row(device, R, width, dt))
@@ -2195,10 +2170,8 @@ def bwd_kernel_phase(device) -> dict:
                                                window=W),
                 lambda: ref.attention_bwd(q, k, v, out, do, window=W),
                 _library_grad(sdpa, (q, k, v), do), iters=3)
-            pairs = B * _kept_pairs(S, S, W)
-            bound, by = _bound(10.0 * hd * h * pairs,
-                               (4 * q.numel() + 4 * k.numel()) * size +
-                               4 * B * h * S, dt)
+            bound, by = _bound(*fa.bwd_cost(q.shape, k.shape, dt, window=W),
+                               dt)
             label = f"B={B} S={S} {h}/{kv}x{hd}" + \
                 (f" window {W}" if W else "") + f" {name}"
             rows[("flash_attention_bwd", label)] = _row(
@@ -2232,9 +2205,7 @@ def bwd_kernel_phase(device) -> dict:
                           lambda: ref.moe_gmm_bwd(x, w, dy),
                           _library_grad(torch.bmm, (x, w), dy), iters=10)
             # x, w and dy read once, dx and dw written once
-            bound, by = _bound(4.0 * E * C * a * b,
-                               (2 * x.numel() + 2 * w.numel() + dy.numel())
-                               * size, dt)
+            bound, by = _bound(*gmm.bwd_cost(x.shape, b, dt), dt)
             label = f"E={E} C={C} {a}->{b} {name}"
             rows[("moe_gmm_bwd", label)] = _row("moe_gmm_bwd", label, aerr,
                                                 t, bound, by, rel=err) | extra
@@ -2714,6 +2685,92 @@ def dp_train_phase(device, smoke: bool = False) -> dict:
     return out
 
 
+# -- phase 10: the dry run: counted on meta, checked on the card ------------
+
+# (arch, shape, layers, batch): the cells the card executes, cut to fit
+DRYRUN_EXECUTED = (("h2o-danube-1.8b", "prefill_32k", None, 1),
+                   ("h2o-danube-1.8b", "decode_32k", None, 8),
+                   ("granite-moe-3b-a800m", "train_4k", 2, 4))
+# one meta cell of each kind on each mesh the port executes (the whole
+# grid runs through ``python -m repro_torch.launch.dryrun --mesh all``;
+# xlstm-125m's 32k prefill and 4k training step alone take minutes, one
+# eager sLSTM step a token)
+DRYRUN_KINDS = (("granite-moe-3b-a800m", "train_4k"),
+                ("h2o-danube-1.8b", "prefill_32k"),
+                ("h2o-danube-1.8b", "decode_32k"),
+                ("jamba-v0.1-52b", "long_500k"))
+
+
+def dryrun_phase(device) -> dict:
+    """The dry run (``repro_torch.launch.dryrun``): one cell of each kind
+    counted on ``meta`` on the ``card`` and ``node`` meshes, and the
+    ``pod`` and ``multipod`` placements of every cell, each with its
+    wall time; then the three executed cells (``execute_cell``) on the
+    card, each of whose counted FLOPs, bytes and kernel and op calls must
+    equal the ``meta`` count at the same cut, and whose roofline share
+    (max(compute_s, memory_s) over the measured median step) must not
+    exceed 1: a share above 1 is a count that is too large."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    grid = {}
+    for arch, shape in DRYRUN_KINDS:
+        for mesh in ("card", "node"):
+            r = dryrun.run_cell(arch, shape, mesh)
+            rf = r["roofline"]
+            grid[f"{arch}__{shape}__{mesh}"] = r["timing"]["count_s"]
+            print(f"dryrun {arch} {shape} {mesh}: {r['per_device']['flops']:.4e}"
+                  f" FLOPs, {r['per_device']['bytes']:.4e} bytes, "
+                  f"collectives {r['per_device']['collective_bytes']:.4e} B a "
+                  f"device; compute {rf['compute_s']:.4f} s, memory "
+                  f"{rf['memory_s']:.4f} s, collective "
+                  f"{rf['collective_s']:.4f} s ({rf['dominant']}); useful "
+                  f"{rf['useful_flops_ratio']:.3f}; memory "
+                  f"{r['memory']['total_bytes'] / 1e9:.2f} GB fits "
+                  f"{r['memory']['fits']}; counted in "
+                  f"{r['timing']['count_s']:.2f} s")
+    n_placed = 0
+    t_placed = time.perf_counter()
+    for arch in dryrun.cfgbase.ARCH_IDS:
+        for cell in dryrun.cfgbase.cells_for(arch):
+            for mesh in ("pod", "multipod"):
+                r = dryrun.run_cell(arch, cell.name, mesh)
+                check(r["executed"] is False and r["per_device"] is None,
+                      f"dryrun {arch} {cell.name} {mesh}: counted FLOPs "
+                      "for a placement the port does not run")
+                n_placed += 1
+    print(f"dryrun placements: {n_placed} pod and multipod cells in "
+          f"{time.perf_counter() - t_placed:.2f} s")
+    executed = {}
+    for arch, shape, n_layers, batch in DRYRUN_EXECUTED:
+        r = dryrun.execute_cell(arch, shape, device, layers=n_layers,
+                                batch=batch)
+        executed[f"{arch}__{shape}"] = r
+        print(f"dryrun executed {arch} {shape} (cut {r['reduced']}): count "
+              f"equal {r['count_equal']} ({r['flops']} FLOPs, {r['bytes']} "
+              f"bytes on the card; {r['meta_flops']}, {r['meta_bytes']} on "
+              f"meta); median {r['measured_s'] * 1e3:.3f} ms of "
+              f"{[round(t * 1e3, 3) for t in r['step_s']]}; compute "
+              f"{r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms; roofline share "
+              f"{r['roofline_share']:.4f}; mfu {r['mfu']:.4f}; kernels "
+              f"{ {k: v['calls'] for k, v in r['kernels'].items()} }")
+        check(r["count_equal"], f"dryrun {arch} {shape}: the card's count "
+              f"differs from the meta count at the same cut: "
+              f"{r['count_diff']} (the card's, meta's)")
+        check(0 < r["roofline_share"] <= 1.0,
+              f"dryrun {arch} {shape}: roofline share "
+              f"{r['roofline_share']} > 1: the count is too large")
+        free_memory()
+    out = {"grid_count_s": grid, "placements": n_placed,
+           "executed": {k: {f: v[f] for f in (
+               "reduced", "count_equal", "flops", "bytes", "measured_s",
+               "compute_s", "memory_s", "roofline_share", "mfu")}
+               for k, v in executed.items()},
+           "wall_s": time.perf_counter() - t0}
+    print("dryrun: " + json.dumps(out))
+    return out
+
+
 BWD_LINES = (   # (name, source, the forward it differentiates, label)
     ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:38",
      "4096x1536 bfloat16"),
@@ -2870,6 +2927,9 @@ def main() -> int:
     # data-parallel training: 2 ranks against one process on the global
     # batch, the ranks' bits equal, one rank the plain trainer's bits
     print("data parallel: " + json.dumps(dp_train_phase(device)))
+    # the dry run: meta counts of the grid, and three cells executed on
+    # the card, each count equal to its meta count at the same cut
+    dryrun_phase(device)
     # the kernel's line: one 1024-frame chunk of the full-width operator,
     # its five conv layers (the main path's largest dispatch); the bound
     # is the larger of their summed bytes and summed operations' times

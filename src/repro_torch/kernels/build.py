@@ -211,6 +211,17 @@ def dtype_code(*tensors) -> int:
     return 0 if dt == torch.float32 else 1
 
 
+def empty_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of ``t``'s shape, type, device and strides. The
+    kernels' wrappers give a ``meta`` result (the dry run) through it:
+    the card's ``torch.empty_like`` keeps a contiguous tensor's strides,
+    those of its size-1 dims included, where ``meta``'s may not, and the
+    strides decide how a later ``matmul`` folds its batch (``mm`` or
+    ``bmm``)."""
+    return torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                               device=t.device)
+
+
 def check_launchable(*tensors) -> None:
     """A CUDA launch reads raw pointers: every tensor must be contiguous
     and 16-byte aligned (the kernels' vector loads)."""

@@ -13,7 +13,11 @@ A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
 The kernel is built at first use by ``kernels/build.py``, with ``nvcc``
 for ``sm_90a``, and rebuilt when the source changes. Nothing
-CUDA-specific happens at import time.
+CUDA-specific happens at import time. A tensor on ``meta`` (the dry
+run) is checked as the card's would be and gets an empty result of the
+right shape; nothing is launched. ``cost`` gives the kernel's operations
+and bytes from its shapes, which the wrapper reports to the op count
+(``kernels/count.py``) when one is active, on every device.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, count, ref
 
 COUTS = (8, 16, 24, 32)       # output channels the kernel compiles
 MAX_SMEM_BYTES = 232_448      # shared memory a block may use on Hopper
@@ -31,6 +35,30 @@ SIGNATURES = {"conv_scorer_f32": [ctypes.c_void_p] * 4 +
               [ctypes.c_int] * 10 + [ctypes.c_void_p]}
 GROUPED_SIGNATURES = {"conv_scorer_grouped_f32": [ctypes.c_void_p] * 4 +
                       [ctypes.c_int] * 11 + [ctypes.c_void_p]}
+
+
+def valid_taps(h: int, stride: int = 2) -> int:
+    """Kernel taps along one axis that land inside the image, summed over
+    the outputs: the taps on SAME padding multiply zeros and are
+    skipped."""
+    ho, top, _ = ref.same_pad(h, stride)
+    return sum(0 <= o * stride - top + k < h
+               for o in range(ho) for k in range(3))
+
+
+def cost(x_shape, cout: int, stride: int = 2):
+    """(operations, bytes) of one launch over x (N, H, W, Cin), or a
+    grouped x (Q, N, H, W, Cin): 2·Cin operations a tap that lands
+    inside the image of each output (``valid_taps``), bias and ReLU not
+    counted; x, w and b read once and the output written once, float32."""
+    q = x_shape[0] if len(x_shape) == 5 else 1
+    n, h, wd, cin = x_shape[-4:]
+    ho, wo = ref.same_pad(h, stride)[0], ref.same_pad(wd, stride)[0]
+    flops = 2 * cin * cout * n * valid_taps(h, stride) * \
+        valid_taps(wd, stride)
+    nbytes = 4 * (n * h * wd * cin + 9 * cin * cout + cout +
+                  n * ho * wo * cout)
+    return q * flops, q * nbytes
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -91,14 +119,26 @@ def conv_scorer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     (``conv_scorer.launches`` counts each launch, a grouped one once, and
     ``conv_scorer.grouped_launches`` the grouped ones) or raise."""
     _check(x, w, b, stride)
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"conv_scorer runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     grouped = x.dim() == 5
-    if x.device.type == "cpu":
-        return (ref.conv_scorer_grouped if grouped else ref.conv_scorer)(
-            x, w, b, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_scorer runs on cpu or cuda, not {x.device}")
-    build.check_launchable(x, w, b)
-    _check_kernel(w, x.shape[-2], stride)
+    with (count.kernel("conv_scorer", cost(x.shape, w.shape[-1], stride),
+                       x.dtype) if count.ACTIVE else count.NOT_COUNTING):
+        if x.device.type == "cpu":
+            return (ref.conv_scorer_grouped if grouped else
+                    ref.conv_scorer)(x, w, b, stride)
+        build.check_launchable(x, w, b)
+        _check_kernel(w, x.shape[-2], stride)
+        if x.device.type == "meta":
+            return x.new_empty(x.shape[:-3] + (
+                ref.same_pad(x.shape[-3], stride)[0],
+                ref.same_pad(x.shape[-2], stride)[0], w.shape[-1]))
+        return _launch(x, w, b, stride)
+
+
+def _launch(x, w, b, stride) -> torch.Tensor:
+    grouped = x.dim() == 5
     q = x.shape[0] if grouped else 1
     n, h, wd, cin = x.shape[-4:]
     cout = w.shape[-1]

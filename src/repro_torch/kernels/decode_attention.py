@@ -11,6 +11,11 @@ bound.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
+A tensor on ``meta`` (the dry run) is checked as the card's would be and
+gets an empty result of the right shape; nothing is launched. ``cost``
+gives the kernel's operations and bytes from its shapes, which the
+wrapper reports to the op count (``kernels/count.py``) when one is
+active, on every device.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, count, ref
 
 SIGNATURES = {
     "decode_attention_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
@@ -65,6 +70,22 @@ def kernel_takes(n_heads: int, n_kv: int, head_dim: int) -> bool:
     return n_kv > 0 and n_heads % n_kv == 0 and head_dim in HEAD_DIMS
 
 
+def cost(q_shape, k_shape, dtype: torch.dtype, *, pos: bool = True,
+         n_valid: Optional[int] = None):
+    """(operations, bytes) of one launch: 4·D operations a valid cache
+    row of each query head (Q.K^T and P.V); the valid rows of k and v
+    read once, q read and the output written once, and the int32
+    positions read (``pos``). ``n_valid``: the valid rows summed over the
+    slots, which follow from the positions' values; None counts every
+    ring row valid (a full cache), which is what the wrapper reports,
+    since it never reads the positions on the host."""
+    B, H, D = q_shape
+    S, KV = k_shape[1], k_shape[2]
+    rows = B * S if n_valid is None else int(n_valid)
+    nbytes = (2 * rows * KV * D + 2 * B * H * D) * dtype.itemsize
+    return 4 * D * H * rows, nbytes + (4 * B if pos else 0)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, H, D); k, v (B, S, KV, D) ring caches; pos (B,) absolute
@@ -86,17 +107,35 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (k, v) + (() if pos is None else (pos,)):
         if t.device != q.device:
             raise ValueError(f"a tensor is on {t.device}, q on {q.device}")
-    if q.device.type == "cpu":
-        return ref.decode_attention(q, k, v, pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode attention runs on cpu or cuda, not "
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"decode attention runs on cpu, cuda or meta, not "
                          f"{q.device}")
+    with (count.kernel("decode_attention", cost(
+            q.shape, k.shape, q.dtype, pos=pos is not None), q.dtype)
+          if count.ACTIVE else count.NOT_COUNTING):
+        if q.device.type == "cpu":
+            return ref.decode_attention(q, k, v, pos)
+        _check_kernel(q, k, v, pos)
+        if q.device.type == "meta":
+            return build.empty_like(q)
+        return _launch(q, k, v, pos, code)
+
+
+def _check_kernel(q, k, v, pos) -> None:
+    """What the kernel takes beyond the plain version (the card's and
+    the dry run's shapes)."""
+    H, D, KV = q.shape[1], q.shape[2], k.shape[2]
     if not kernel_takes(H, KV, D):
         raise ValueError(f"head dim {D} is not one the kernel compiles "
                          f"{HEAD_DIMS}")
     if pos is not None and pos.dtype != torch.int32:
         raise TypeError(f"pos is int32 on the card, not {pos.dtype}")
     build.check_launchable(q, k, v, *(() if pos is None else (pos,)))
+
+
+def _launch(q, k, v, pos, code) -> torch.Tensor:
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
     lib = build.load("decode_attention", SIGNATURES)
     split = split_rows(S, D, H // KV, q.dtype)
     part = torch.empty(scratch_floats(B, H, S, D, split),

@@ -28,21 +28,69 @@ at D 256, on the CUDA cores. On the CPU the backward is the plain
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
+A tensor on ``meta`` (the dry run) is checked as the card's would be and
+gets empty results of the right shapes; nothing is launched. ``cost``
+and ``bwd_cost`` give the kernels' operations and bytes from their
+shapes (and the (q, k) pairs the mask keeps, ``kept_pairs``), which the
+wrapper reports to the op count (``kernels/count.py``) when one is
+active, on every device.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, count, ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the head dims the kernel compiles
 SIGNATURES = {"flash_attention_fwd": [ctypes.c_void_p] * 5 +
               [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]}
 BWD_SIGNATURES = {"flash_attention_bwd": [ctypes.c_void_p] * 10 +
                   [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]}
+
+
+def kept_pairs(sq: int, sk: int, window: Optional[int],
+               q_offset: int = 0, causal: bool = True) -> int:
+    """(q, k) pairs of one (batch, head) that the mask keeps: query row i
+    at position ``q_offset + i`` (q aligned to the end of k when
+    ``q_offset`` is 0 and Sq != Sk, as the kernel resolves it) keeps key
+    j iff j <= pos (causal) and j > pos - window."""
+    if q_offset == 0 and sq != sk:
+        q_offset = sk - sq
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, sk - 1) if causal else np.full_like(pos, sk - 1)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros_like(pos)
+    return int(np.sum(np.maximum(hi - lo + 1, 0)))
+
+
+def cost(q_shape, k_shape, dtype: torch.dtype, *, causal: bool = True,
+         window: Optional[int] = None, q_offset: int = 0,
+         with_lse: bool = False):
+    """(operations, bytes) of one forward launch: 4·D operations a kept
+    (q, k) pair of each query head (Q.K^T and P.V); q, k and v read and
+    the output written once, and with ``with_lse`` the float32
+    log-sum-exp written."""
+    B, Sq, H, D = q_shape
+    Sk, KV = k_shape[1], k_shape[2]
+    pairs = B * kept_pairs(Sq, Sk, window, q_offset, causal)
+    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KV * D) * dtype.itemsize
+    return 4 * D * H * pairs, nbytes + (4 * B * H * Sq if with_lse else 0)
+
+
+def bwd_cost(q_shape, k_shape, dtype: torch.dtype, *, causal: bool = True,
+             window: Optional[int] = None, q_offset: int = 0):
+    """(operations, bytes) of one backward call (its two launches): 10·D
+    operations a kept pair of each query head (S and dP recomputed, dQ,
+    dK, dV); q, the output, dout and dq, and k, v, dk, dv each crossing
+    memory once, and the log-sum-exp read."""
+    B, Sq, H, D = q_shape
+    Sk, KV = k_shape[1], k_shape[2]
+    pairs = B * kept_pairs(Sq, Sk, window, q_offset, causal)
+    nbytes = (4 * B * Sq * H * D + 4 * B * Sk * KV * D) * dtype.itemsize
+    return 10 * D * H * pairs, nbytes + 4 * B * H * Sq
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -73,9 +121,10 @@ def _check(q, k, v, window) -> int:
         raise ValueError(f"window must be >= 1, got {window}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"attention runs on cpu or cuda, not {q.device}")
-    if q.device.type == "cuda":
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"attention runs on cpu, cuda or meta, not "
+                         f"{q.device}")
+    if q.device.type != "cpu":
         if D not in HEAD_DIMS:
             raise ValueError(f"head dim {D} is not one the kernel compiles "
                              f"{HEAD_DIMS}")
@@ -92,9 +141,22 @@ def _forward(q, k, v, causal, window, q_offset, with_lse: bool):
     """(out, lse): lse (B, H, Sq) float32 when ``with_lse`` on the card,
     else None."""
     code = _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset), None
+    with (count.kernel("flash_attention", cost(
+            q.shape, k.shape, q.dtype, causal=causal, window=window,
+            q_offset=q_offset, with_lse=with_lse), q.dtype)
+          if count.ACTIVE else count.NOT_COUNTING):
+        if q.device.type == "cpu":
+            return ref.attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset), None
+        if q.device.type == "meta":
+            B, Sq, H, _ = q.shape
+            return build.empty_like(q), torch.empty(
+                (B, H, Sq), dtype=torch.float32, device=q.device) \
+                if with_lse else None
+        return _launch(q, k, v, causal, window, q_offset, with_lse, code)
+
+
+def _launch(q, k, v, causal, window, q_offset, with_lse, code):
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     q_offset = _resolve_offset(q, k, q_offset)
@@ -126,9 +188,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if dout.shape != q.shape or dout.dtype != q.dtype or \
             out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError(f"out and dout must match q {tuple(q.shape)}")
-    if q.device.type == "cpu":
-        return ref.attention_bwd(q, k, v, out, dout, causal=causal,
-                                 window=window, q_offset=q_offset)
+    with (count.kernel("flash_attention_bwd", bwd_cost(
+            q.shape, k.shape, q.dtype, causal=causal, window=window,
+            q_offset=q_offset), q.dtype)
+          if count.ACTIVE else count.NOT_COUNTING):
+        if q.device.type == "cpu":
+            return ref.attention_bwd(q, k, v, out, dout, causal=causal,
+                                     window=window, q_offset=q_offset)
+        if q.device.type == "meta":
+            return build.empty_like(q), build.empty_like(k), \
+                build.empty_like(v)
+        return _launch_bwd(q, k, v, out, lse, dout, causal, window,
+                           q_offset, code)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, window, q_offset, code):
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if lse is None or lse.shape != (B, H, Sq) or lse.dtype != torch.float32:

@@ -22,6 +22,11 @@ cast to the float32 master weight. On the CPU the backward is the plain
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
+A tensor on ``meta`` (the dry run) is checked as the card's would be and
+gets empty results of the right shapes; nothing is launched. ``cost``
+and ``bwd_cost`` give the kernels' operations and bytes from their
+shapes, which the wrapper reports to the op count
+(``kernels/count.py``) when one is active, on every device.
 """
 from __future__ import annotations
 
@@ -29,12 +34,30 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, count, ref
 
 SIGNATURES = {"moe_gmm_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
               [ctypes.c_void_p],
               "moe_gmm_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
               [ctypes.c_void_p]}
+
+
+def cost(x_shape, f: int, dtype: torch.dtype):
+    """(operations, bytes) of one forward launch, x (E, C, d) times w (E,
+    d, f): 2 operations a multiply-add; x and w read and the output
+    written once."""
+    E, C, d = x_shape
+    return 2 * E * C * d * f, (E * C * d + E * d * f + E * C * f) * \
+        dtype.itemsize
+
+
+def bwd_cost(x_shape, f: int, dtype: torch.dtype):
+    """(operations, bytes) of one backward call (its two launches, dx and
+    dw): twice the forward's operations; x, w and dy read once and dx
+    and dw written once."""
+    E, C, d = x_shape
+    return 4 * E * C * d * f, (2 * E * C * d + 2 * E * d * f + E * C * f) \
+        * dtype.itemsize
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -63,10 +86,11 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> int:
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"moe_gmm runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"moe_gmm runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     d, f = w.shape[1], w.shape[2]
-    if x.device.type == "cuda" and (d % 8 or f % 8):
+    if x.device.type != "cpu" and (d % 8 or f % 8):
         raise ValueError(f"the kernel takes d and f in multiples of 8 "
                          f"(16-byte rows for TMA); got d {d}, f {f}")
     return code
@@ -75,11 +99,19 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> int:
 def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x[e] @ w[e]: the plain version on the CPU, one launch on the card."""
     code = _check(x, w)
-    if x.device.type == "cpu":
-        return ref.moe_gmm(x, w)
+    with (count.kernel("moe_gmm", cost(x.shape, w.shape[2], x.dtype),
+                       x.dtype) if count.ACTIVE else count.NOT_COUNTING):
+        if x.device.type == "cpu":
+            return ref.moe_gmm(x, w)
+        build.check_launchable(x, w)
+        if x.device.type == "meta":
+            return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+        return _launch(x, w, code)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, code: int) -> torch.Tensor:
     E, C, d = x.shape
     f = w.shape[2]
-    build.check_launchable(x, w)
     out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     build.launch(build.load("moe_gmm", SIGNATURES).moe_gmm_fwd, x.device,
                  x.data_ptr(), w.data_ptr(), out.data_ptr(), code, E, C, d,
@@ -97,8 +129,18 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     if dy.shape != (E, C, f) or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} does not fit x "
                          f"{tuple(x.shape)} and w {tuple(w.shape)}")
-    if x.device.type == "cpu":
-        return ref.moe_gmm_bwd(x, w, dy)
+    with (count.kernel("moe_gmm_bwd", bwd_cost(x.shape, f, x.dtype),
+                       x.dtype) if count.ACTIVE else count.NOT_COUNTING):
+        if x.device.type == "cpu":
+            return ref.moe_gmm_bwd(x, w, dy)
+        if x.device.type == "meta":
+            return build.empty_like(x), build.empty_like(w)
+        return _launch_bwd(x, w, dy, code)
+
+
+def _launch_bwd(x, w, dy, code):
+    E, C, d = x.shape
+    f = w.shape[2]
     dy = dy.contiguous()
     build.check_launchable(x, w, dy)
     dx = torch.empty_like(x)

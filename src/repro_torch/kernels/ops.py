@@ -11,7 +11,10 @@ what the LM zoo's model calls for its norms, its prefill attention, its
 decode attention and its MoE expert products (the JAX package's
 ``use_pallas`` hot paths): each is the
 kernel's wrapper, which sends a CPU tensor to the plain version and
-launches the CUDA kernel on a CUDA tensor, or raises. Under autograd
+launches the CUDA kernel on a CUDA tensor, or raises; a ``meta`` tensor
+(the dry run, ``launch/dryrun.py``) gets an empty result of the card's
+shape and strides, and every wrapper reports its kernel's ``cost`` to
+the op count (``kernels/count.py``) when one is active. Under autograd
 ``rmsnorm``, ``attention`` and ``moe_gmm`` go through their modules'
 ``autograd.Function``s, whose backward passes are hand-written kernels
 too (the plain backward passes of ``kernels/ref.py`` on the CPU).

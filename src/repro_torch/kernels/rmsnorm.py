@@ -15,14 +15,20 @@ of the plain norm.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
+A tensor on ``meta`` (the dry run, ``launch/dryrun.py``) is checked as
+the card's would be and gets an empty result of the right shape; nothing
+is launched. ``cost`` and ``bwd_cost`` give each kernel's operations and
+bytes from its shapes, which the wrapper reports to the op count
+(``kernels/count.py``) when one is active, on every device.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, count, ref
 
 MAX_D = 8192          # a row's values: 256 threads x 32 values
 SIGNATURES = {"rmsnorm_fwd": [ctypes.c_void_p] * 3 + [
@@ -33,6 +39,23 @@ SIGNATURES = {"rmsnorm_fwd": [ctypes.c_void_p] * 3 + [
     "rmsnorm_bwd": [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
     ctypes.c_void_p]}
+
+
+def cost(shape, dtype: torch.dtype):
+    """(operations, bytes) of one forward launch over x of ``shape``:
+    3 operations a value (its square, its share of the mean, the
+    scaling); x read and y written once, the float32 scale read once."""
+    n, d = math.prod(shape), shape[-1]
+    return 3 * n, 2 * n * dtype.itemsize + 4 * d
+
+
+def bwd_cost(shape, dtype: torch.dtype):
+    """(operations, bytes) of one backward launch: 10 operations a
+    value; x and dy read and dx written once, the scale read and dscale
+    written once (the partial rows of dscale are the design's own
+    traffic, not counted)."""
+    n, d = math.prod(shape), shape[-1]
+    return 10 * n, 3 * n * dtype.itemsize + 8 * d
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -55,9 +78,10 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> int:
                          f"{tuple(x.shape)} and {tuple(scale.shape)}")
     if scale.device != x.device:
         raise ValueError(f"scale is on {scale.device}, x on {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rmsnorm runs on cpu or cuda, not {x.device}")
-    if x.device.type == "cuda":
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"rmsnorm runs on cpu, cuda or meta, not "
+                         f"{x.device}")
+    if x.device.type != "cpu":
         if not (x.is_contiguous() and scale.is_contiguous()):
             raise ValueError("rmsnorm takes contiguous tensors")
         if x.shape[-1] > MAX_D:
@@ -69,8 +93,16 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> int:
 def _forward(x: torch.Tensor, scale: torch.Tensor,
              eps: float) -> torch.Tensor:
     code = _check(x, scale)
-    if x.device.type == "cpu":
-        return ref.rmsnorm(x, scale, eps)
+    with (count.kernel("rmsnorm", cost(x.shape, x.dtype), x.dtype)
+          if count.ACTIVE else count.NOT_COUNTING):
+        if x.device.type == "cpu":
+            return ref.rmsnorm(x, scale, eps)
+        if x.device.type == "meta":
+            return build.empty_like(x)
+        return _launch(x, scale, eps, code)
+
+
+def _launch(x, scale, eps, code) -> torch.Tensor:
     d = x.shape[-1]
     out = torch.empty_like(x)
     rows = x.numel() // d if d else 0
@@ -93,8 +125,16 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
                          f"{tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
-        return ref.rmsnorm_bwd(x, scale, dy, eps)
+    with (count.kernel("rmsnorm_bwd", bwd_cost(x.shape, x.dtype), x.dtype)
+          if count.ACTIVE else count.NOT_COUNTING):
+        if x.device.type == "cpu":
+            return ref.rmsnorm_bwd(x, scale, dy, eps)
+        if x.device.type == "meta":
+            return build.empty_like(x), build.empty_like(scale)
+        return _launch_bwd(x, scale, dy, eps, code)
+
+
+def _launch_bwd(x, scale, dy, eps, code):
     dy = dy.contiguous()
     d = x.shape[-1]
     dx = torch.empty_like(x)

@@ -16,6 +16,11 @@ member's output bit for bit the ungrouped launch's on its own inputs.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
+A tensor on ``meta`` (the dry run) is checked as the card's would be and
+gets an empty result of the right shape; nothing is launched. ``cost``
+gives the kernel's operations and bytes from its shapes, which the
+wrapper reports to the op count (``kernels/count.py``) when one is
+active, on every device.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, count, ref
 
 MAX_DENSE = 64                # dense units a row of the kernel holds
 # the ungrouped C interface, which every design of the kernel has
@@ -31,6 +36,15 @@ SIGNATURES = {"scorer_head_f32": [ctypes.c_void_p] * 6 +
               [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 GROUPED_SIGNATURES = {"scorer_head_grouped_f32": [ctypes.c_void_p] * 6 +
                       [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+
+
+def cost(m: int, feat: int, dense: int, members: int = 1):
+    """(operations, bytes) of one launch over ``members`` members of M
+    rows: 2 operations a multiply-add of both layers; h, the weights and
+    biases read once and the (M, 2) output written once, float32."""
+    flops = 2 * m * dense * (feat + 2)
+    nbytes = 4 * (m * feat + feat * dense + dense + 2 * dense + 2 + 2 * m)
+    return members * flops, members * nbytes
 
 
 def scorer_head(h: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
@@ -58,18 +72,32 @@ def scorer_head(h: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
             "scorer_head takes h (M, feat), wd (feat, dense), bd (dense,), "
             "wh (dense, 2), bh (2,), or each with a leading member axis; "
             f"got {[tuple(t.shape) for t in tensors.values()]}")
-    if h.device.type == "cpu":
-        return (ref.scorer_head_grouped if grouped else ref.scorer_head)(
-            h, wd, bd, wh, bh)
-    if h.device.type != "cuda":
-        raise ValueError(f"scorer_head runs on cpu or cuda, not {h.device}")
+    if h.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"scorer_head runs on cpu, cuda or meta, not "
+                         f"{h.device}")
     q = h.shape[0] if grouped else 1
     M, feat = h.shape[-2:]
     dense = wd.shape[-1]
-    if dense > MAX_DENSE:
-        raise ValueError(f"the kernel takes at most {MAX_DENSE} dense "
-                         f"units; got {dense}")
-    build.check_launchable(*tensors.values())
+    with (count.kernel("scorer_head", cost(M, feat, dense, q), h.dtype)
+          if count.ACTIVE else count.NOT_COUNTING):
+        if h.device.type == "cpu":
+            return (ref.scorer_head_grouped if grouped else
+                    ref.scorer_head)(h, wd, bd, wh, bh)
+        if dense > MAX_DENSE:
+            raise ValueError(f"the kernel takes at most {MAX_DENSE} dense "
+                             f"units; got {dense}")
+        build.check_launchable(*tensors.values())
+        if h.device.type == "meta":
+            return h.new_empty(lead + (M, 2))
+        return _launch(h, wd, bd, wh, bh)
+
+
+def _launch(h, wd, bd, wh, bh) -> torch.Tensor:
+    grouped = h.dim() == 3
+    lead = tuple(h.shape[:1]) if grouped else ()
+    q = h.shape[0] if grouped else 1
+    M, feat = h.shape[-2:]
+    dense = wd.shape[-1]
     out = torch.empty(lead + (M, 2), dtype=torch.float32, device=h.device)
     build.launch(build.load("scorer_head", SIGNATURES | GROUPED_SIGNATURES)
                  .scorer_head_grouped_f32,

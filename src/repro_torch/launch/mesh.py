@@ -15,8 +15,15 @@ data axis. Two kinds are built here:
     ``(world_size, 1)`` over the ranks of the default process group of
     ``torch.distributed``, one slot a process (1 with no process group).
 
-The JAX package's ``make_production_mesh`` (a TPU pod shape for its dry
-run) has no counterpart yet.
+And the dry run's meshes (``launch/dryrun.py``), which hold no devices:
+only axis names and sizes. ``make_dryrun_mesh("card")`` is one card;
+``"node"`` is ``{data: 8}``, the eight cards of one H100 node under the
+data-parallel placement the port runs (parameters replicated, the batch
+split, gradients all-gathered and summed as ``train/train_step.
+sum_gradients`` does); ``"pod"`` and ``"multipod"`` are the JAX
+package's ``make_production_mesh`` shapes, ``{data: 16, model: 16}``
+and ``{pod: 2, data: 16, model: 16}`` (32 and 64 nodes of 8 H100s),
+whose "model" axis the port does not execute.
 """
 from __future__ import annotations
 
@@ -29,9 +36,10 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``devices``: one a slot of the data axis (for a mesh over
-    processes, each rank's device, this process's at ``rank``);
-    ``group``: the process group whose ranks are the data axis's slots,
-    or None when every slot is in this process."""
+    processes, each rank's device, this process's at ``rank``; none for
+    a dry run's mesh, which only names a shape); ``group``: the process
+    group whose ranks are the data axis's slots, or None when every slot
+    is in this process."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...]
@@ -50,6 +58,29 @@ class Mesh:
     def processes(self) -> int:
         """Processes the data axis spans (1 for a mesh of one process)."""
         return len(self.devices) if self.group is not None else 1
+
+
+def make_production_mesh(multi_pod: bool = False) -> Mesh:
+    """The JAX package's production mesh shape, with no devices: 16 x 16
+    ("data", "model"), or 2 x 16 x 16 ("pod", "data", "model")."""
+    if multi_pod:
+        return Mesh((), ("pod", "data", "model"),
+                    {"pod": 2, "data": 16, "model": 16})
+    return Mesh((), ("data", "model"), {"data": 16, "model": 16})
+
+
+DRYRUN_MESHES = ("card", "node", "pod", "multipod")
+
+
+def make_dryrun_mesh(name: str) -> Mesh:
+    """One of ``DRYRUN_MESHES``, with no devices."""
+    if name == "card":
+        return Mesh((), ("data",), {"data": 1})
+    if name == "node":
+        return Mesh((), ("data",), {"data": 8})
+    if name in ("pod", "multipod"):
+        return make_production_mesh(multi_pod=name == "multipod")
+    raise ValueError(f"unknown mesh {name!r}; one of {DRYRUN_MESHES}")
 
 
 def make_scoring_mesh(devices: Optional[Sequence] = None) -> Optional[Mesh]:

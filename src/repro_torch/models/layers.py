@@ -11,12 +11,19 @@ parameter type as trainable Parameters, and its modules cast each to
 the compute type ``cdt`` where they use it (``use``), as the JAX layers
 do. Norm scales stay float32, as the JAX norms read them, and so do the
 mixer weights the JAX package reads in float32 (``FLOAT32_WEIGHTS``).
-``Annot`` and ``shape_only`` belong to the JAX package's sharding and
-dry-run and have no counterpart here.
+
+The JAX package builds its parameters as ``Annot(value, axes)`` pairs
+and, under ``shape_only``, as shapes with no values, which
+``split_annotated`` splits into a parameter tree and its logical-axes
+tree for its sharding rules and its dry run. The port's counterpart is
+``ParamSpec``: one leaf of that tree (its path, its JAX shape, its type
+and its logical axes), listed from the config alone by
+``models/transformer.py::param_specs``; no value is drawn or held.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -27,6 +34,21 @@ from repro_torch.kernels import ops
 
 # mixer weights the JAX package casts to float32 where it reads them
 FLOAT32_WEIGHTS = ("A_log", "gn_scale", "r")
+
+
+class ParamSpec(NamedTuple):
+    """One leaf of the JAX package's parameter tree: ``path`` (the keys
+    from the root, e.g. ``("blocks", 0, "mixer", "wq")``), ``shape`` (the
+    JAX shape: stacked over periods, query heads and experts padded),
+    ``dtype`` and ``axes`` (its logical axis names, None unsharded)."""
+    path: Tuple[object, ...]
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    axes: Tuple[Optional[str], ...]
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
 
 
 def weight(t: torch.Tensor, trainable: bool) -> nn.Parameter:

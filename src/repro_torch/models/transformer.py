@@ -17,7 +17,10 @@ Entry points:
   init_caches(cfg, batch, cache_len, device) -> caches
   forward_hidden(model, tokens, prefix_embeds) -> (x, (lb, z))
   train_loss(model, batch)                -> nll + 0.01 lb + 0.001 z
-``models/convert.py::params_from_jax`` builds the model from the JAX
+  param_specs(cfg)                        -> the JAX parameter tree's leaves
+``init_model(cfg, device="meta")`` and ``init_caches(..., device="meta")``
+build the model and caches with no storage, for the dry run
+(``launch/dryrun.py``). ``models/convert.py::params_from_jax`` builds the model from the JAX
 package's weights instead. A served model's weights are cast once, when
 it is built, to ``cfg.compute_dtype``; norm scales and the weights the
 JAX package reads in float32 (``FLOAT32_WEIGHTS``) stay float32. A model
@@ -250,9 +253,13 @@ class Transformer(nn.Module):
                 for n, p in self.named_parameters()}
 
 
-def _draw(generator: torch.Generator, shape, scale: Optional[float] = None):
+def _draw(generator: Optional[torch.Generator], shape,
+          scale: Optional[float] = None):
     """``repro/models/layers.py::param``'s distribution: normal times
-    1/sqrt(fan_in), fan_in being shape[-2] (shape[-1] for a vector)."""
+    1/sqrt(fan_in), fan_in being shape[-2] (shape[-1] for a vector). With
+    no generator, an empty ``meta`` tensor: nothing drawn or held."""
+    if generator is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     if scale is None:
         fan_in = shape[-2] if len(shape) > 1 else shape[-1]
         scale = 1.0 / max(fan_in, 1) ** 0.5
@@ -284,16 +291,16 @@ def _draw_mixer(cfg: ModelConfig, mixer: str, g: torch.Generator) -> Dict:
     scale 0.5, Mamba's dt bias at 1.0, A_log = log(1..N), ones for D and
     the head norms' scales, zeros for the biases."""
     d, H = cfg.d_model, cfg.num_heads
+    dev = g.device if g is not None else torch.device("meta")
 
     def const(value, *shape):
-        return torch.full(shape, value, dtype=torch.float32,
-                          device=g.device)
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
 
     if mixer == "mamba":
         di, N = d * cfg.mamba_expand, cfg.mamba_d_state
         R = cfg.resolved_dt_rank
         a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
-                                       device=g.device))
+                                       device=dev))
         return {"in_proj": _draw(g, (d, 2 * di)),
                 "conv_w": _draw(g, (cfg.mamba_d_conv, di), 0.5),
                 "conv_b": const(0.0, di),
@@ -320,7 +327,8 @@ def _draw_layer(cfg: ModelConfig, spec: BlockSpec,
                 g: torch.Generator) -> Dict:
     d, kv, hd, f = (cfg.d_model, cfg.num_kv_heads, cfg.resolved_head_dim,
                     cfg.d_ff)
-    w = {"norm1": torch.ones(d)}
+    dev = g.device if g is not None else torch.device("meta")
+    w = {"norm1": torch.ones(d, device=dev)}
     if spec.mixer in ("attn", "attn_window"):
         h, hp = cfg.num_heads, attention.padded_heads(cfg.num_heads)
         w.update(wq=_draw(g, (d, hp, hd))[:, :h],
@@ -329,13 +337,126 @@ def _draw_layer(cfg: ModelConfig, spec: BlockSpec,
     else:
         w["mixer"] = _draw_mixer(cfg, spec.mixer, g)
     if spec.ffn != "none":
-        w["norm2"] = torch.ones(d)
+        w["norm2"] = torch.ones(d, device=dev)
     if spec.ffn == "moe":
         w["moe"] = _draw_moe(cfg, g)
     elif spec.ffn == "dense":
         w.update(wg=_draw(g, (d, f)), wu=_draw(g, (d, f)),
                  ffn_wo=_draw(g, (f, d)))
     return w
+
+
+def _mixer_specs(cfg: ModelConfig, mixer: str):
+    """(name, shape, axes, dtype or None for the parameter type) of one
+    pattern position's mixer weights, unstacked, as ``repro/models/
+    attention.py::init_attention``, ``ssm.py::init_mamba`` and
+    ``xlstm.py::init_mlstm`` / ``init_slstm`` build them."""
+    d, H = cfg.d_model, cfg.num_heads
+    if mixer in ("attn", "attn_window"):
+        hp, kv, hd = (attention.padded_heads(H), cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+        return [("wq", (d, hp, hd), ("embed", "heads", "head_dim"), None),
+                ("wk", (d, kv, hd), ("embed", "kv_heads", "head_dim"), None),
+                ("wv", (d, kv, hd), ("embed", "kv_heads", "head_dim"), None),
+                ("wo", (hp, hd, d), ("heads", "head_dim", "embed"), None)]
+    if mixer == "mamba":
+        di, N = d * cfg.mamba_expand, cfg.mamba_d_state
+        R = cfg.resolved_dt_rank
+        return [("in_proj", (d, 2 * di), ("embed", "ffn"), None),
+                ("conv_w", (cfg.mamba_d_conv, di), (None, "ffn"), None),
+                ("conv_b", (di,), ("ffn",), None),
+                ("x_proj", (di, R + 2 * N), ("ffn", None), None),
+                ("dt_w", (R, di), (None, "ffn"), None),
+                ("dt_b", (di,), ("ffn",), None),
+                ("A_log", (di, N), ("ffn", None), torch.float32),
+                ("D", (di,), ("ffn",), None),
+                ("out_proj", (di, d), ("ffn", "embed"), None)]
+    if mixer == "mlstm":
+        di = d * cfg.mlstm_expand
+        return [("w_up", (d, 2 * di), ("embed", None), None),
+                ("conv_w", (xlstm.CONV, di), (None, None), None),
+                ("conv_b", (di,), (None,), None),
+                ("wq", (di, di), (None, None), None),
+                ("wk", (di, di), (None, None), None),
+                ("wv", (di, di), (None, None), None),
+                ("w_if", (di, 2 * H), (None, None), None),
+                ("b_if", (2 * H,), (None,), None),
+                ("gn_scale", (di,), (None,), None),
+                ("w_down", (di, d), (None, "embed"), None)]
+    dh, ffs = d // H, xlstm.ff_size(d, cfg.slstm_ff_expand)
+    return [("w_in", (d, 4 * d), ("embed", None), None),
+            ("b_in", (4 * d,), (None,), None),
+            ("r", (H, dh, 4 * dh), (None, None, None), None),
+            ("gn_scale", (d,), (None,), None),
+            ("ff_up", (d, 2 * ffs), ("embed", None), None),
+            ("ff_down", (ffs, d), (None, "embed"), None)]
+
+
+def _ffn_specs(d: int, ff: int):
+    return [("wg", (d, ff), ("embed", "ffn"), None),
+            ("wu", (d, ff), ("embed", "ffn"), None),
+            ("wo", (ff, d), ("ffn", "embed"), None)]
+
+
+def param_specs(cfg: ModelConfig) -> List[layers.ParamSpec]:
+    """Every leaf of the JAX package's parameter tree for ``cfg``, in
+    ``jax.tree_util``'s order (dict keys sorted, lists in order): what
+    ``split_annotated(init_model(cfg, key))`` gives under
+    ``shape_only()`` there, built from the config alone. Block weights
+    carry the leading ``layer`` axis of the periods; query heads and
+    experts are padded to the JAX package's 16-way axes (the port's own
+    weights keep only the real ones)."""
+    check_supported(cfg)
+    pdt = torch_dtype(cfg.param_dtype)
+    d, P = cfg.d_model, cfg.num_periods
+    tree: Dict = {"embed": {"table": ((cfg.vocab_size, d),
+                                      ("vocab", "embed"), pdt)},
+                  "final_norm": {"scale": ((d,), ("embed",), pdt)}}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = {"table": ((cfg.vocab_size, d),
+                                     ("vocab", "embed"), pdt)}
+
+    def stacked(entries):
+        return {n: ((P,) + shape, ("layer",) + axes, dt or pdt)
+                for n, shape, axes, dt in entries}
+
+    blocks = []
+    for spec in cfg.pattern:
+        b = {"norm1": stacked([("scale", (d,), ("embed",), None)]),
+             "mixer": stacked(_mixer_specs(cfg, spec.mixer))}
+        if spec.ffn != "none":
+            b["norm2"] = stacked([("scale", (d,), ("embed",), None)])
+        if spec.ffn == "dense":
+            b["ffn"] = stacked(_ffn_specs(d, cfg.d_ff))
+        elif spec.ffn == "moe":
+            f, ep = cfg.resolved_d_ff_expert, \
+                moe.padded_experts(cfg.num_experts)
+            b["ffn"] = stacked([
+                ("router", (d, ep), ("embed", None), None),
+                ("wg", (ep, d, f), ("expert", "embed", None), None),
+                ("wu", (ep, d, f), ("expert", "embed", None), None),
+                ("wo", (ep, f, d), ("expert", None, "embed"), None)])
+            if cfg.num_shared_experts:
+                b["ffn"]["shared"] = stacked(
+                    _ffn_specs(d, f * cfg.num_shared_experts))
+        blocks.append(b)
+    tree["blocks"] = blocks
+
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, list):
+            for i, child in enumerate(node):
+                walk(child, path + (i,))
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        else:
+            shape, axes, dt = node
+            out.append(layers.ParamSpec(path, tuple(shape), dt,
+                                        tuple(axes)))
+    walk(tree, ())
+    return out
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -347,14 +468,20 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     the float32 draws of only one layer are held at once. The padded
     query heads' and experts' weights are drawn and dropped, so each
     weight has the JAX package's scale and the real experts their own
-    draws."""
+    draws. On ``device="meta"`` (the dry run) nothing is drawn, no
+    generator is used and no memory is taken: every weight is an empty
+    meta tensor of its shape and type."""
     check_supported(cfg)
     device = resolve_device(device)
-    g = generator if generator is not None else \
-        torch.Generator().manual_seed(0)
+    if device.type == "meta":
+        g = None
+    else:
+        g = generator if generator is not None else \
+            torch.Generator().manual_seed(0)
     d = cfg.d_model
     weights = {"embed": _draw(g, (cfg.vocab_size, d), 1.0),
-               "final_norm": torch.ones(d)}
+               "final_norm": torch.ones(
+                   d, device=g.device if g is not None else "meta")}
     if not cfg.tie_embeddings:
         weights["unembed"] = _draw(g, (cfg.vocab_size, d), d ** -0.5)
     weights["layers"] = (_draw_layer(cfg, cfg.pattern[i % len(cfg.pattern)],
@@ -424,7 +551,9 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     for block in model.blocks:
         x, cache = block(x, positions, emit_cache=True)
         caches.append(cache)
-    x = model.final_norm(x[:, -1:])
+    # the last position of every row, contiguous: the norm's kernel takes
+    # contiguous rows (a (B, 1, d) slice of B > 1 rows is not)
+    x = model.final_norm(x[:, -1:].contiguous())
     return model._logits(x), caches
 
 

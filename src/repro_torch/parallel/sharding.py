@@ -13,11 +13,14 @@ Default rules:
   embed  -> "data"; vocab/heads/kv_heads/ffn/expert -> "model"
   batch  -> ("pod", "data") as far as the mesh has them
 
-The port uses the batch rule (``data_batch_specs``: the rows a
-data-parallel rank trains on) and the scoring rules below. Placing
-parameters and decode caches by these rules (the JAX package's
-``param_shardings`` and ``cache_shardings``) needs a "model" axis larger
-than 1, which the port does not have yet.
+The port runs the batch rule (``data_batch_specs``: the rows a
+data-parallel rank trains on) and the scoring rules below.
+``param_shardings`` and ``cache_shardings`` place the parameters (the
+JAX layout of ``models/transformer.py::param_specs``) and the decode
+caches (stacked over periods, ``launch/specs.stacked_caches``) by the
+rules, as the JAX package's do, fallbacks recorded; the dry run
+(``launch/dryrun.py``) reads them for the per-device bytes of the JAX
+placements over a "model" axis, which the port does not execute.
 """
 from __future__ import annotations
 
@@ -60,6 +63,66 @@ def spec_for_leaf(shape, axes, mesh, rules, fallbacks=None) -> Spec:
                 fallbacks.append((ax, dim, mapped))
             entries.append(None)
     return tuple(entries)
+
+
+def param_shardings(specs, mesh, rules=None, collect_fallbacks=None):
+    """``specs``: the ``ParamSpec``s of ``models/transformer.py::
+    param_specs`` (JAX shapes and logical axes). Returns their specs in
+    the same order; a dim the mapped mesh axes do not divide replicates,
+    recorded in ``collect_fallbacks``."""
+    rules = rules if rules is not None else default_rules(mesh)
+    return [spec_for_leaf(p.shape, p.axes, mesh, rules, collect_fallbacks)
+            for p in specs]
+
+
+def cache_shardings(cfg, caches_shapes, mesh, batch: int):
+    """Decode KV-cache specs, as the JAX package's: ``caches_shapes`` a
+    tree (tuples, lists, dicts) whose leaves have a ``shape``, in the JAX
+    layout (stacked over periods). Attention k/v caches (periods, B, S,
+    KV, D): batch over ("pod", "data") when it divides (and B > 1);
+    cache seq over "model" (B > 1) or ("data", "model") (B == 1) when it
+    divides. Mamba's h (periods, B, di, N): d_inner over "model" when it
+    divides. Returns the same tree of specs."""
+    names = mesh.axis_names
+    bax = tuple(a for a in ("pod", "data") if a in names)
+    b_ok = batch % _axis_size(mesh, bax) == 0 and batch > 1
+
+    def seq_axes(seq_dim: int):
+        cand = ("data", "model") if batch == 1 else ("model",)
+        return cand if seq_dim % _axis_size(mesh, cand) == 0 else ()
+
+    def one(leaf):
+        shp = tuple(leaf.shape)
+        spec = [None] * len(shp)
+        if len(shp) >= 2 and shp[1] == batch and b_ok:
+            spec[1] = bax if len(bax) > 1 else bax[0]
+        if len(shp) == 5:                      # (periods,B,S,KV,D) attn cache
+            sa = seq_axes(shp[2])
+            if sa:
+                spec[2] = sa if len(sa) > 1 else sa[0]
+        if len(shp) == 4 and shp[-1] != shp[-2]:  # (periods,B,di,N) mamba h
+            if shp[2] % mesh.shape["model"] == 0:
+                spec[2] = "model"
+        return tuple(spec)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        return one(node)
+    return walk(caches_shapes)
+
+
+def shard_bytes(shape, itemsize: int, spec: Spec, mesh) -> int:
+    """Bytes of one device's shard of a leaf placed by ``spec``."""
+    n = itemsize
+    for i, dim in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        axes = () if entry is None else \
+            ((entry,) if isinstance(entry, str) else tuple(entry))
+        n *= int(dim) // _axis_size(mesh, axes)
+    return n
 
 
 def batch_sharding(mesh, rules=None) -> Spec:

@@ -99,37 +99,49 @@ def shard_batch(mesh, batch: Mapping) -> Dict:
     return out
 
 
+def gradient_buckets(numels, bucket_bytes: int = BUCKET_BYTES):
+    """The buckets ``sum_gradients`` sends for gradients of ``numels``
+    values, in order: each a list of (gradient's index, start, count),
+    at most ``bucket_bytes`` of float32 a rank. ``launch/op_analysis.
+    collective_plan`` counts the same buckets."""
+    room = max(bucket_bytes // 4, 1)
+    buckets = []
+    i, off = 0, 0               # the gradient and the offset the next bucket starts at
+    while i < len(numels):
+        pieces, size = [], 0    # (index, start, count) a bucket holds
+        while i < len(numels) and size < room:
+            take = min(numels[i] - off, room - size)
+            pieces.append((i, off, take))
+            size += take
+            off += take
+            if off == numels[i]:
+                i, off = i + 1, 0
+        buckets.append(pieces)
+    return buckets
+
+
 @torch.no_grad()
 def sum_gradients(grads: Mapping[str, torch.Tensor], group,
                   bucket_bytes: int = BUCKET_BYTES) -> None:
     """Every gradient replaced, in place, by its sum over the ranks of
     ``group``: the gradients, flattened in their order, are all-gathered
-    in float32 buckets of at most ``bucket_bytes`` a rank and added rank
-    0 first, so every rank gets the same bits."""
+    in float32 buckets of at most ``bucket_bytes`` a rank
+    (``gradient_buckets``) and added rank 0 first, so every rank gets
+    the same bits."""
     n = torch.distributed.get_world_size(group)
     if not all(g.is_contiguous() for g in grads.values()):
         raise ValueError("the gradients are summed in place: each must be "
                          "contiguous")
     views = [g.view(-1) for g in grads.values()]
-    total = sum(v.numel() for v in views)
-    if not total:
+    if not sum(v.numel() for v in views):
         return
-    room = max(bucket_bytes // 4, 1)
     dev = views[0].device
-    i, off = 0, 0               # the view and the offset the next bucket starts at
-    while i < len(views):
-        pieces, size = [], 0    # (view, start, count) a bucket holds
-        while i < len(views) and size < room:
-            take = min(views[i].numel() - off, room - size)
-            pieces.append((views[i], off, take))
-            size += take
-            off += take
-            if off == views[i].numel():
-                i, off = i + 1, 0
+    for pieces in gradient_buckets([v.numel() for v in views], bucket_bytes):
+        size = sum(k for _, _, k in pieces)
         send = torch.empty(size, dtype=torch.float32, device=dev)
         o = 0
-        for v, start, k in pieces:
-            send[o:o + k] = v[start:start + k]
+        for j, start, k in pieces:
+            send[o:o + k] = views[j][start:start + k]
             o += k
         parts = [torch.empty_like(send) for _ in range(n)]
         torch.distributed.all_gather(parts, send, group=group)
@@ -137,8 +149,8 @@ def sum_gradients(grads: Mapping[str, torch.Tensor], group,
         for part in parts[1:]:
             acc += part
         o = 0
-        for v, start, k in pieces:
-            v[start:start + k] = acc[o:o + k]
+        for j, start, k in pieces:
+            views[j][start:start + k] = acc[o:o + k]
             o += k
         del send, parts, acc
 

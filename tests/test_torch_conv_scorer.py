@@ -84,8 +84,16 @@ def test_wrapper_checks_inputs_and_counts_only_kernel_launches():
         cs.conv_scorer(x, w[:, :, :4], b)
     with pytest.raises(ValueError):
         cs.conv_scorer(x, w, b[:4])
+    with pytest.raises(ValueError):                    # x on meta, w not
+        cs.conv_scorer(x.to("meta"), w, b)
+    # meta (the dry run) is checked as the card is and launches nothing:
+    # Cout 12 is not one the kernel compiles
     with pytest.raises(ValueError):
-        cs.conv_scorer(x.to("meta"), w.to("meta"), b.to("meta"))
+        cs.conv_scorer(x.to("meta"), torch.zeros(3, 3, 8, 12, device="meta"),
+                       torch.zeros(12, device="meta"))
+    m = cs.conv_scorer(x.to("meta"), w.to("meta"), b.to("meta"))
+    assert m.device.type == "meta" and m.shape == (2, 7, 7, 8)
+    assert cs.conv_scorer.launches == before
     out = cs.conv_scorer(x[:0], w, b)
     assert out.shape == (0, 7, 7, 8)
 

@@ -1139,3 +1139,21 @@ def test_one_rank_distributed_step_is_the_plain_step(cuda, tmp_path):
         dist.destroy_process_group()
     assert all(torch.equal(a, b) for a, b in zip(plain[0], one[0]))
     assert all(torch.equal(plain[1][n], one[1][n]) for n in plain[1])
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("h2o-danube-1.8b", "prefill_32k"), ("h2o-danube-1.8b", "decode_32k"),
+    ("granite-moe-3b-a800m", "train_4k"), ("granite-moe-3b-a800m",
+                                           "decode_32k"),
+    ("jamba-v0.1-52b", "train_4k"), ("xlstm-125m", "prefill_32k")])
+def test_execute_cell_counts_what_meta_counts(cuda, arch, shape):
+    """A narrow (smoke-width) 2-period cut of a cell, run on the card
+    under the op count, counts exactly what the same cut counts on
+    ``meta``: FLOPs, bytes, every kernel's calls and every aten op's."""
+    from repro_torch.launch import dryrun
+    cfg = get_smoke_config(arch)
+    cfg = cfg.scaled(num_layers=min(cfg.num_layers, 2 * len(cfg.pattern)))
+    r = dryrun.execute_cell(arch, shape, cuda, cfg=cfg, batch=2, seq=64)
+    assert r["count_equal"], r["count_diff"]
+    assert r["flops"] == r["meta_flops"] and r["bytes"] == r["meta_bytes"]
+    assert r["kernels"] and 0 < r["roofline_share"] <= 1.0

@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "examples").glob("torch_*.py"))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__") for p in PORT.rglob("*.py"))
@@ -50,7 +51,17 @@ def test_no_jax_or_repro_import_in_the_port_source():
             "repro_torch.train.data", "repro_torch.train.elastic",
             "repro_torch.launch.train", "repro_torch.launch.mesh",
             "repro_torch.parallel.sharding",
-            "repro_torch.parallel.ops"} <= set(MODULES)
+            "repro_torch.parallel.ops", "repro_torch.launch.dryrun",
+            "repro_torch.launch.specs", "repro_torch.launch.op_analysis",
+            "repro_torch.kernels.count",
+            "repro_torch.analysis", "repro_torch.analysis.__main__",
+            "repro_torch.analysis.engine",
+            "repro_torch.analysis.rules_determinism",
+            "repro_torch.analysis.rules_generic",
+            "repro_torch.analysis.rules_stepper",
+            "repro_torch.analysis.rules_tracing"} <= set(MODULES)
+    assert {"torch_quickstart.py", "torch_zc2_text_query.py"} <= {
+        p.name for p in FILES}
     bad = []
     for path in FILES:
         for name in _imported(ast.parse(path.read_text())):

@@ -162,5 +162,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ops.attention(q, q, q, window=0)
     with pytest.raises(ValueError):
         ops.decode_attention(q[:, 0], q, q, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):                    # x on meta, scale not
+        ops.rmsnorm(x.to("meta"), torch.ones(16))
+    # meta (the dry run) is checked as the card is, and launches nothing
     with pytest.raises(ValueError):
-        ops.rmsnorm(x.to("meta"), torch.ones(16, device="meta"))
+        ops.rmsnorm(torch.zeros(4, 9000, device="meta"),
+                    torch.ones(9000, device="meta"))
+    y = ops.rmsnorm(x.to("meta"), torch.ones(16, device="meta"))
+    assert y.device.type == "meta" and y.shape == x.shape

@@ -70,5 +70,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         sh.scorer_head(args[0][:, :8], *args[1:])          # feat mismatch
     with pytest.raises(ValueError):
         sh.scorer_head(*args[:3], args[3][:, :1], args[4])  # one head column
-    with pytest.raises(ValueError):
-        sh.scorer_head(*(a.to("meta") for a in args))
+    with pytest.raises(ValueError):                    # h on meta, the rest not
+        sh.scorer_head(args[0].to("meta"), *args[1:])
+    # meta (the dry run) is checked as the card is and launches nothing
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError):                    # more than 64 dense units
+        sh.scorer_head(meta[0], torch.zeros(16, 65, device="meta"),
+                       torch.zeros(65, device="meta"),
+                       torch.zeros(65, 2, device="meta"), meta[4])
+    before = sh.scorer_head.launches
+    out = sh.scorer_head(*meta)
+    assert out.device.type == "meta" and out.shape == (args[0].shape[0], 2)
+    assert sh.scorer_head.launches == before
