@@ -74,6 +74,10 @@ MODULES = {"conv_scorer": cs, "rmsnorm": rms, "rmsnorm_bwd": rms,
 # split, which it chooses itself (decode_attention_split_rows)
 OLD_DECODE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
+# the later designs' whole-ring interface (decode_attention_fwd): the
+# caller's split, no row offset and no log-sum-exp
+FWD_DECODE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 def load_variant(kernel: str, source: Path):
@@ -264,13 +268,13 @@ def decode_cases(lib, name: str, splits) -> bool:
     tpos = torch.tensor(pos, dtype=torch.int32, device=dev)
     old = hasattr(lib, "decode_attention_split_rows")
     fn = lib.decode_attention_fwd
-    fn.argtypes = OLD_DECODE if old else da.SIGNATURES[
-        "decode_attention_fwd"]
+    fn.argtypes = OLD_DECODE if old else FWD_DECODE
     fn.restype = ctypes.c_int
     if old:
         lib.decode_attention_split_rows.argtypes = []
         lib.decode_attention_split_rows.restype = ctypes.c_int
     port = build.load("decode_attention", da.SIGNATURES).decode_attention_fwd
+    port.argtypes, port.restype = FWD_DECODE, ctypes.c_int
     same_all = True
     for H, KV, D, model in DECODES:
         for dt in (torch.bfloat16, torch.float32):

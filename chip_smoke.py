@@ -151,6 +151,10 @@ KERNELS = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention",
 LM_ARCH = "h2o-danube-1.8b"  # examples/serve_lm.py's default model
 MOE_ARCH = "granite-moe-3b-a800m"   # ROADMAP's MoE configuration
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+# a slice's log-sum-exp is float32 scores' in both types (the kernel's
+# and the plain version's bf16 products are exact in float32); relative
+# to the largest |lse|, at least 1
+LSE_TOL = 1e-4
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py
 LOGIT_TOL = 1e-3             # float32 whole-model parity, kernel vs plain
 ROUTE_LIMIT = 1e-3           # share of top-k expert sets that may differ
@@ -1339,6 +1343,75 @@ def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
         rows[("decode_attention", label)] = _row("decode_attention", label,
                                                  err, t, bound, by)
         del q, k, v, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def decode_slice_phase(device) -> dict:
+    """Decode attention over a slice of each ring, the model axis's tick
+    (``models/attention.py``): rows S/2 .. S-1 of h2o-danube-1.8b's 8
+    rings of 4096 (the slots' positions as ``lm_kernel_phase``'s, so some
+    slots have no valid row in the slice), with each head's log-sum-exp,
+    against its plain version, timed beside it and SDPA over the slice
+    with its row mask. And the whole ring with a log-sum-exp asked: its
+    output must be the same bits as without one."""
+    cfg = get_config(LM_ARCH)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, S = 8, 4096
+    r0 = S // 2
+    pos = np.random.default_rng(0).integers(0, S, size=B)
+    pos[-1] = S + 904
+    tpos = torch.tensor(pos, dtype=torch.int32, device=device)
+    n_valid = np.where(pos >= S, S - r0, np.clip(pos + 1 - r0, 0, S - r0))
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q = _randn((B, H, D), dt, device, 7)
+        k = _randn((B, S, KV, D), dt, device, 8)
+        v = _randn((B, S, KV, D), dt, device, 9)
+        ks, vs = k[:, r0:].contiguous(), v[:, r0:].contiguous()
+        got, lse = da.decode_attention(q, ks, vs, tpos, row0=r0, rows=S,
+                                       lse=True)
+        want, wlse = ref.decode_attention(q, ks, vs, tpos, row0=r0, rows=S,
+                                          lse=True)
+        err = float((got.float() - want.float()).abs().max())
+        empty = torch.isinf(wlse)
+        check(torch.equal(torch.isinf(lse), empty),
+              f"decode slice {dt}: the empty slots' log-sum-exp differ")
+        lse_err = float((lse[~empty] - wlse[~empty]).abs().max())
+        lse_scale = max(1.0, float(wlse[~empty].abs().max()))
+        print(f"decode slice {str(dt)[6:]}: output max |err| {err:.3e}, "
+              f"log-sum-exp max |err| {lse_err:.3e} (max |lse| "
+              f"{lse_scale:.3f})", flush=True)
+        check(math.isfinite(err) and err <= LM_TOL[dt] and
+              lse_err <= LSE_TOL * lse_scale,
+              f"decode slice {dt}: max |err| {err}, lse {lse_err}")
+        # the whole ring: asking for the log-sum-exp keeps the output's bits
+        whole = da.decode_attention(q, k, v, tpos)
+        same = torch.equal(da.decode_attention(q, k, v, tpos, lse=True)[0],
+                           whole)
+        check(same, f"decode slice {dt}: the output with a log-sum-exp "
+              "differs from the output without one")
+        qt = q[:, :, None]
+        kt = ref.expand_kv(ks, H).transpose(1, 2)
+        vt = ref.expand_kv(vs, H).transpose(1, 2)
+        r = torch.arange(S - r0, device=device)[None, :] + r0
+        valid = ((r <= tpos[:, None].long()) |
+                 (tpos[:, None].long() >= S))[:, None, None, :]
+        t = _in_turns(lambda: da.decode_attention(q, ks, vs, tpos, row0=r0,
+                                                  rows=S, lse=True),
+                      lambda: ref.decode_attention(q, ks, vs, tpos, row0=r0,
+                                                   rows=S, lse=True),
+                      lambda: F.scaled_dot_product_attention(
+                          qt, kt, vt, attn_mask=valid), iters=50)
+        bound, by = _bound(*da.cost(q.shape, ks.shape, dt,
+                                    n_valid=int(n_valid.sum()), lse=True), dt)
+        label = (f"B=8 rows {r0}..{S - 1} of S=4096 pos {pos.tolist()} "
+                 f"(empty slots {int(empty[:, 0].sum())}) "
+                 f"{str(dt)[6:]}")
+        rows[("decode_attention_slice", label)] = _row(
+            "decode_attention slice", label, err, t, bound, by)
+        rows[("decode_attention_slice", label)]["lse_keeps_bits"] = same
+        del q, k, v, ks, vs, kt, vt
     torch.cuda.empty_cache()
     return rows
 
@@ -2547,11 +2620,12 @@ def dp_worker(job: dict) -> int:
     return 0
 
 
-def spawn_ranks(tmp: str, world: int, job: dict) -> list:
-    """``world`` ranks of ``dp_worker`` as processes, each under
-    ``DP_TIMEOUT``; any rank's failure fails the phase. Returns each
-    rank's results."""
-    name = f"dp{world}"
+def spawn_ranks(tmp: str, world: int, job: dict,
+                flag: str = "--dp-worker") -> list:
+    """``world`` ranks of ``dp_worker`` (``flag`` "--tp-worker":
+    ``tp_worker``) as processes, each under ``DP_TIMEOUT``; any rank's
+    failure fails the phase. Returns each rank's results."""
+    name = f"{flag[2:4]}{world}"
     job = {**job, "init": f"file://{tmp}/{name}_store",
            "out": f"{tmp}/{name}_" + "{rank}.pt"}
     path = Path(tmp) / f"{name}.json"
@@ -2559,7 +2633,7 @@ def spawn_ranks(tmp: str, world: int, job: dict) -> list:
     env = {**os.environ, "WORLD_SIZE": str(world),
            "PYTHONPATH": str(ROOT / "src")}
     procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker",
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag,
          str(path)], env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
         for r in range(world)]
@@ -2575,9 +2649,10 @@ def spawn_ranks(tmp: str, world: int, job: dict) -> list:
             p.kill()
             p.wait()
     for r, (p, (out, err)) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"data-parallel rank {r} of {world}: rc "
+        check(p.returncode == 0, f"rank {r} of {world} ({flag}): rc "
               f"{p.returncode}\n{out[-2000:]}\n{err[-6000:]}")
-    return [torch.load(job["out"].format(rank=r)) for r in range(world)]
+    return [torch.load(job["out"].format(rank=r), weights_only=False)
+            for r in range(world)]
 
 
 def dp_train_phase(device, smoke: bool = False) -> dict:
@@ -2685,6 +2760,339 @@ def dp_train_phase(device, smoke: bool = False) -> dict:
     return out
 
 
+# -- phase 9b: the "model" axis: heads, kv heads, ffn, vocab, experts and
+# Mamba's d_inner split over processes, the decode cache split by sequence
+
+TP_RANKS = 2
+TP_PARITY = ((LM_ARCH, 2), (MOE_ARCH, 2), (HYBRID_ARCH, 8))  # arch, layers
+# float32 parity: rows, prompt tokens, ring rows, decode ticks
+TP_ROWS, TP_PROMPT, TP_CACHE, TP_TICKS = 2, 256, 512, 4
+TP_STEP = (2, 512)             # granite's float32 step: rows x tokens
+# h2o-danube-1.8b whole in bf16: prompts, tokens each, ring rows, ticks
+TP_SERVE = (16, 512, 1024, 64)
+# the dry run's model-axis cut: arch, shape, layers, batch
+TP_DRYRUN = (LM_ARCH, "decode_32k", 2, 8)
+
+
+def tp_config(arch: str, smoke: bool, **overrides):
+    """``arch`` as ``served_config`` gives it (``smoke``: its smoke
+    config, for a rehearsal on the CPU), with ``overrides``."""
+    from repro_torch.configs.base import get_smoke_config
+    if smoke:
+        return get_smoke_config(arch).scaled(**overrides)
+    return served_config(arch, **overrides)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tp_built(device, cfg, mesh, trainable: bool = False):
+    """``cfg``'s model from seed 0 with unit scores (F3): this rank's of
+    ``mesh``'s model axis, the ranks building in turn (the others wait
+    at a barrier), so that one rank's full-layer draws at a time are on
+    the card beside the built halves; the whole with no mesh."""
+    def build():
+        model = tf.init_model(cfg, torch.Generator(device=device)
+                              .manual_seed(0), device, trainable=trainable,
+                              mesh=mesh)
+        unit_scores(model)
+        return model
+    if mesh is None:
+        return build()
+    import torch.distributed as dist
+    model = None
+    for r in range(mesh.shape["model"]):
+        if r == mesh.model_rank:
+            model = build()
+            free_memory()
+        dist.barrier(group=mesh.model_group)
+    return model
+
+
+def tp_parity_run(device, cfg, mesh) -> dict:
+    """``cfg`` in float32 with unit scores (F3), this process's model (a
+    rank's of ``mesh``'s model axis, or the whole with None): the
+    prefill step's last logits of ``TP_ROWS`` prompts of ``TP_PROMPT``
+    tokens into rings of ``TP_CACHE`` rows, then ``TP_TICKS`` decode
+    steps of seeded tokens; each step's logits and every routing."""
+    model = tp_built(device, cfg, mesh)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (TP_ROWS, TP_PROMPT))
+    ticks = rng.integers(0, cfg.vocab_size, (TP_TICKS, TP_ROWS, 1))
+    prefill = steps.make_prefill_step(cfg, mesh, TP_CACHE)
+    decode = steps.make_decode_step(cfg, mesh)
+    log, label = [], [("prefill", 0)]
+    with recorded_routes(log, label):
+        logits, caches = prefill(model, {"tokens": tokens})
+        out = [logits.float().cpu()]
+        pos = torch.full((TP_ROWS,), TP_PROMPT, dtype=torch.int32)
+        for t in ticks:
+            logits, caches = decode(model, caches,
+                                    {"tokens": t, "pos": pos})
+            out.append(logits.float().cpu())
+            pos = pos + 1
+    del model, caches
+    free_memory()
+    return {"logits": out, "routes": [r.cpu() for _, r in log]}
+
+
+def tp_step_run(device, mesh, smoke: bool = False) -> dict:
+    """One float32 step of 2 full-width granite-moe-3b-a800m layers (unit
+    scores): the loss, every gradient (this rank's shards), the routes,
+    which parameters are split."""
+    cfg = tp_config(TRAIN_ARCH, smoke, num_layers=2, compute_dtype="float32")
+    model = tp_built(device, cfg, mesh, trainable=True)
+    rng = np.random.default_rng(1)
+    batch = {k: rng.integers(0, cfg.vocab_size, TP_STEP)
+             for k in ("tokens", "labels")}
+    log, label = [], [("step", 0)]
+    with recorded_routes(log, label), steps.deterministic():
+        loss, grads = steps.loss_and_grads(model, batch, mesh)
+    out = {"loss": loss.cpu(), "grads": {n: g.cpu() for n, g in grads.items()},
+           "routes": [r.cpu() for _, r in log], "split": model.model_split()}
+    del model, grads
+    free_memory()
+    return out
+
+
+def tp_serve_run(device, mesh, smoke: bool = False) -> dict:
+    """h2o-danube-1.8b whole in bf16 (unit scores), this rank's slice:
+    one prefill step of ``TP_SERVE``'s prompts into split rings, then
+    greedy decode ticks; host seconds of the prefill and of each tick
+    (each ending in a synchronise), each tick's host seconds inside the
+    model axis's gathers, the greedy tokens, and the kernels' launches
+    of the run (counts set to 0 just before it)."""
+    import torch.distributed as dist
+    n, L, S, T = TP_SERVE
+    cfg = tp_config(LM_ARCH, smoke, compute_dtype="bfloat16") if smoke \
+        else get_config(LM_ARCH)
+    model = tp_built(device, cfg, mesh)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (n, L))
+    prefill = steps.make_prefill_step(cfg, mesh, S)
+    decode = steps.make_decode_step(cfg, mesh)
+    spent, real = [0.0], dist.all_gather
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        res = real(*args, **kwargs)
+        spent[0] += time.perf_counter() - t
+        return res
+
+    for k in (rms.rmsnorm, fa.flash_attention, da.decode_attention,
+              gmm.moe_gmm):
+        k.launches = 0
+    dist.all_gather = timed
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, caches = prefill(model, {"tokens": tokens})
+        _sync(device)
+        out = {"prefill_s": time.perf_counter() - t0, "tick_s": [],
+               "tick_gather_s": [], "prefill_gather_s": spent[0]}
+        pos = torch.full((n,), L, dtype=torch.int32)
+        greedy = []
+        for _ in range(T):
+            nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
+            greedy.append(nxt.cpu())
+            g0 = spent[0]
+            t0 = time.perf_counter()
+            logits, caches = decode(model, caches, {"tokens": nxt,
+                                                    "pos": pos})
+            _sync(device)
+            out["tick_s"].append(time.perf_counter() - t0)
+            out["tick_gather_s"].append(spent[0] - g0)
+            pos = pos + 1
+    finally:
+        dist.all_gather = real
+    out["launches"] = lm_launches()
+    out["tokens"] = torch.cat(greedy, dim=1)
+    out["finite"] = bool(torch.isfinite(logits).all())
+    out["cache_rows"] = caches[0]["k"].shape[1]
+    del model, caches
+    free_memory()
+    return out
+
+
+def tp_worker(job: dict) -> int:
+    """One rank of ``model_axis_phase`` (``chip_smoke.py --tp-worker
+    JOB``): a gloo group of ``TP_RANKS`` on the one card, the mesh
+    ``make_local_mesh(device, model=TP_RANKS)``; the float32 parity runs,
+    granite's step, the bf16 serve and the dry run's model-axis cut
+    (``dryrun.execute_cell(..., model=TP_RANKS)``)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch.launch import dryrun
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device(job["device"] if job["device"] != "cuda"
+                          else "cuda:0")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=job["init"], rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=DP_TIMEOUT))
+    try:
+        mesh = make_local_mesh(device, model=world)
+        out = {"model_rank": mesh.model_rank, "parity": {}}
+        smoke = job["smoke"]
+        for arch, n_layers in TP_PARITY:
+            cfg = tp_config(arch, smoke, num_layers=n_layers,
+                            compute_dtype="float32")
+            out["parity"][arch] = tp_parity_run(device, cfg, mesh)
+        out["step"] = tp_step_run(device, mesh, smoke)
+        out["serve"] = tp_serve_run(device, mesh, smoke)
+        arch, shape, n_layers, batch = TP_DRYRUN
+        cut = dryrun.execute_cell(
+            arch, shape, device, layers=n_layers, batch=batch, model=world,
+            **({"cfg": tp_config(arch, True), "seq": 64} if smoke else {}))
+        out["dryrun"] = {k: cut[k] for k in (
+            "reduced", "model", "model_rank", "count_equal", "count_diff",
+            "collectives", "flops", "bytes", "meta_flops", "meta_bytes",
+            "measured_s", "step_s", "compute_s", "memory_s",
+            "roofline_share", "kernels")}
+        torch.save(out, job["out"].format(rank=rank))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_joined(parts, shape) -> torch.Tensor:
+    """The model ranks' shards of a parameter joined in rank order on the
+    dim that differs from the one-process ``shape``, cut to it (the
+    padded heads and experts, at the end, dropped)."""
+    if tuple(parts[0].shape) == tuple(shape):
+        return parts[0]
+    dim = next(i for i, (a, b) in enumerate(zip(parts[0].shape, shape))
+               if a != b)
+    return torch.cat(parts, dim=dim).narrow(dim, 0, shape[dim])
+
+
+def model_axis_phase(device, smoke: bool = False) -> dict:
+    """The "model" axis over ``TP_RANKS`` gloo ranks on the one card
+    (``tp_worker``), against one process (this one, after the ranks
+    ended):
+    (a) float32 at full width, unit scores: h2o-danube-1.8b (2 layers,
+    the kv heads split), granite-moe-3b-a800m (2 layers, its 24 heads
+    padded to 32, kv heads and vocab whole) and one jamba-v0.1-52b period
+    (Mamba's d_inner split): the prefill's and each decode tick's logits
+    over caches split by sequence within ``LOGIT_TOL`` where no route
+    differs, at most ``ROUTE_LIMIT`` of the routes differing, the ranks'
+    logits bit for bit equal;
+    (b) granite's float32 step: the loss within 1e-4, every gradient
+    within ``TRAIN_GRAD_TOL`` of its largest entry (the shards joined),
+    every replicated gradient bit for bit equal on both ranks;
+    (c) h2o-danube-1.8b whole in bf16: ``TP_SERVE``'s prompts prefilled
+    and decoded greedily, the ranks' tokens equal, the prefill's and each
+    tick's host ms and each tick's ms inside the gathers, the kernels
+    each launched;
+    (d) the dry run's cut ``TP_DRYRUN`` executed on both ranks, each
+    count (collectives included) equal to the meta count of one device
+    of the axis; returned for ``dryrun_phase``.
+    ``smoke``: the smoke configs, for a rehearsal on the CPU."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(tmp, TP_RANKS, {"device": str(device.type),
+                                            "smoke": smoke},
+                            flag="--tp-worker")
+    t_ranks = time.perf_counter() - t0
+    out = {"ranks": TP_RANKS, "wall_ranks_s": t_ranks, "parity": {}}
+    for arch, n_layers in TP_PARITY:
+        cfg = tp_config(arch, smoke, num_layers=n_layers,
+                        compute_dtype="float32")
+        want = tp_parity_run(device, cfg, None)
+        got = [r["parity"][arch] for r in ranks]
+        check(all(torch.equal(a, b) for r in got[1:]
+                  for a, b in zip(got[0]["logits"], r["logits"])),
+              f"model axis {arch}: the ranks' logits differ")
+        diff = total = 0
+        for w, g in zip(want["routes"], got[0]["routes"]):
+            bad = (w.sort(dim=-1).values != g.sort(dim=-1).values).any(-1)
+            diff += int(bad.sum())
+            total += w.shape[0]
+        dl = [float((a - b).abs().max()) for a, b in
+              zip(got[0]["logits"], want["logits"])]
+        out["parity"][arch] = {"layers": n_layers, "max_abs_dlogit": dl,
+                               "routes_compared": total,
+                               "routes_differing": diff}
+        print(f"model axis {arch} ({n_layers} layers at full width, "
+              f"float32, unit scores), {TP_RANKS} ranks against one "
+              f"process: max|dlogit| prefill then {TP_TICKS} ticks " +
+              " ".join(f"{x:.3e}" for x in dl) + (
+                  f"; top-k sets differing {diff} of {total}"
+                  if total else ""))
+        check(diff <= ROUTE_LIMIT * max(total, 1),
+              f"model axis {arch}: {diff} of {total} routes differ")
+        if diff == 0:
+            check(max(dl) <= LOGIT_TOL, f"model axis {arch}: logits "
+                  f"differ by {max(dl)}")
+        free_memory()
+    want = tp_step_run(device, None, smoke)
+    got = [r["step"] for r in ranks]
+    check(all(torch.equal(got[0]["loss"], g["loss"]) for g in got[1:]),
+          "model axis step: the ranks' losses differ")
+    dloss = abs(float(got[0]["loss"]) - float(want["loss"]))
+    errs, same = {}, True
+    for name, g in want["grads"].items():
+        parts = [r["grads"][name] for r in got]
+        if not got[0]["split"][name]:
+            same &= all(torch.equal(parts[0], q) for q in parts[1:])
+        errs[name] = _rel_err(tp_joined(parts, g.shape), g)
+    worst = max(errs, key=errs.get)
+    diff = sum(int((w.sort(dim=-1).values != g.sort(dim=-1).values)
+                   .any(-1).sum())
+               for w, g in zip(want["routes"], got[0]["routes"]))
+    total = sum(w.shape[0] for w in want["routes"])
+    out["step"] = {"loss": float(got[0]["loss"]),
+                   "loss_one_process": float(want["loss"]), "dloss": dloss,
+                   "max_rel_grad_err": errs[worst], "worst_grad": worst,
+                   "replicated_grads_equal": same,
+                   "routes_compared": total, "routes_differing": diff}
+    print(f"model axis {TRAIN_ARCH} float32 step (2 layers, {TP_STEP[0]} x "
+          f"{TP_STEP[1]} tokens): loss {out['step']['loss']:.6f} vs one "
+          f"process {out['step']['loss_one_process']:.6f}; worst gradient "
+          f"{worst} rel err {errs[worst]:.3e}; replicated gradients equal "
+          f"on both ranks {same}; top-k sets differing {diff} of {total}")
+    check(dloss <= 1e-4, f"model axis step: the loss differs by {dloss}")
+    check(errs[worst] <= TRAIN_GRAD_TOL, f"model axis gradient {worst}: "
+          f"{errs[worst]}")
+    check(same, "model axis step: a replicated gradient differs between "
+          "the ranks")
+    check(diff <= ROUTE_LIMIT * total, f"model axis step: {diff} of "
+          f"{total} routes differ")
+    serve = [r["serve"] for r in ranks]
+    s0 = serve[0]
+    n, L, S, T = TP_SERVE
+    check(all(torch.equal(s0["tokens"], s["tokens"]) for s in serve[1:]),
+          "model axis serve: the ranks' greedy tokens differ")
+    check(all(s["finite"] for s in serve), "model axis serve: logits not "
+          "finite")
+    for k in ("rmsnorm", "flash_attention", "decode_attention"):
+        check(s0["launches"][k] > 0, f"model axis serve: {k} not launched")
+    out["serve"] = {k: s0[k] for k in ("prefill_s", "tick_s",
+                                       "tick_gather_s", "prefill_gather_s",
+                                       "launches", "cache_rows")}
+    ticks = np.array(s0["tick_s"][1:]) * 1e3
+    gathers = np.array(s0["tick_gather_s"][1:]) * 1e3
+    if device.type == "cuda":
+        print(card_line())
+    print(f"model axis serve {LM_ARCH} whole, bf16, {TP_RANKS} gloo ranks on "
+          f"one card: {n} prompts of {L} tokens prefilled in "
+          f"{s0['prefill_s'] * 1e3:.1f} ms (gathers "
+          f"{s0['prefill_gather_s'] * 1e3:.1f} ms of it), rings of {S} rows "
+          f"({s0['cache_rows']} a rank); {T} greedy ticks: median "
+          f"{np.median(ticks):.2f} ms a tick (min {ticks.min():.2f}, max "
+          f"{ticks.max():.2f}; the first {s0['tick_s'][0] * 1e3:.2f}), of "
+          f"which the model axis's gathers median {np.median(gathers):.2f} "
+          f"ms (host); kernels {s0['launches']}")
+    out["dryrun"] = [r["dryrun"] for r in ranks]
+    out["wall_s"] = time.perf_counter() - t0
+    print("model axis: " + json.dumps({k: v for k, v in out.items()
+                                       if k != "dryrun"}))
+    free_memory()
+    return out
+
+
 # -- phase 10: the dry run: counted on meta, checked on the card ------------
 
 # (arch, shape, layers, batch): the cells the card executes, cut to fit
@@ -2701,45 +3109,69 @@ DRYRUN_KINDS = (("granite-moe-3b-a800m", "train_4k"),
                 ("jamba-v0.1-52b", "long_500k"))
 
 
-def dryrun_phase(device) -> dict:
+def dryrun_phase(device, model_axis=()) -> dict:
     """The dry run (``repro_torch.launch.dryrun``): one cell of each kind
-    counted on ``meta`` on the ``card`` and ``node`` meshes, and the
-    ``pod`` and ``multipod`` placements of every cell, each with its
-    wall time; then the three executed cells (``execute_cell``) on the
-    card, each of whose counted FLOPs, bytes and kernel and op calls must
-    equal the ``meta`` count at the same cut, and whose roofline share
-    (max(compute_s, memory_s) over the measured median step) must not
-    exceed 1: a share above 1 is a count that is too large."""
+    counted on ``meta`` on the ``card``, ``node`` and ``pod`` meshes (the
+    pod's one device of the 16-way model axis) and one on ``multipod``,
+    and the JAX placement's bytes of every cell on ``pod`` and
+    ``multipod``, each with its wall time; then the three executed cells
+    (``execute_cell``) on the card, each of whose counted FLOPs, bytes
+    and kernel and op calls must equal the ``meta`` count at the same
+    cut, and whose roofline share (max(compute_s, memory_s) over the
+    measured median step) must not exceed 1: a share above 1 is a count
+    that is too large. ``model_axis``: each rank's result of the
+    model-axis cut (``model_axis_phase``), whose count, collectives
+    included, must equal its ``meta`` count too."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     grid = {}
-    for arch, shape in DRYRUN_KINDS:
-        for mesh in ("card", "node"):
-            r = dryrun.run_cell(arch, shape, mesh)
-            rf = r["roofline"]
-            grid[f"{arch}__{shape}__{mesh}"] = r["timing"]["count_s"]
-            print(f"dryrun {arch} {shape} {mesh}: {r['per_device']['flops']:.4e}"
-                  f" FLOPs, {r['per_device']['bytes']:.4e} bytes, "
-                  f"collectives {r['per_device']['collective_bytes']:.4e} B a "
-                  f"device; compute {rf['compute_s']:.4f} s, memory "
-                  f"{rf['memory_s']:.4f} s, collective "
-                  f"{rf['collective_s']:.4f} s ({rf['dominant']}); useful "
-                  f"{rf['useful_flops_ratio']:.3f}; memory "
-                  f"{r['memory']['total_bytes'] / 1e9:.2f} GB fits "
-                  f"{r['memory']['fits']}; counted in "
-                  f"{r['timing']['count_s']:.2f} s")
+    kinds = [(a, s, m) for a, s in DRYRUN_KINDS
+             for m in ("card", "node", "pod")] + [DRYRUN_KINDS[0] +
+                                                  ("multipod",)]
+    for arch, shape, mesh in kinds:
+        r = dryrun.run_cell(arch, shape, mesh)
+        rf = r["roofline"]
+        grid[f"{arch}__{shape}__{mesh}"] = r["timing"]["count_s"]
+        jax_mem = (f" (the JAX placement "
+                   f"{r['jax_memory']['total_bytes'] / 1e9:.2f} GB)"
+                   if "jax_memory" in r else "")
+        print(f"dryrun {arch} {shape} {mesh}: {r['per_device']['flops']:.4e}"
+              f" FLOPs, {r['per_device']['bytes']:.4e} bytes, "
+              f"collectives {r['per_device']['collective_bytes']:.4e} B a "
+              f"device; compute {rf['compute_s']:.4f} s, memory "
+              f"{rf['memory_s']:.4f} s, collective "
+              f"{rf['collective_s']:.4f} s ({rf['dominant']}); useful "
+              f"{rf['useful_flops_ratio']:.3f}; memory "
+              f"{r['memory']['total_bytes'] / 1e9:.2f} GB fits "
+              f"{r['memory']['fits']}{jax_mem}; counted in "
+              f"{r['timing']['count_s']:.2f} s")
+        check(r["per_device"]["flops"] > 0, f"dryrun {arch} {shape} {mesh}:"
+              " nothing counted")
     n_placed = 0
     t_placed = time.perf_counter()
     for arch in dryrun.cfgbase.ARCH_IDS:
+        cfg = dryrun.cfgbase.get_config(arch)
         for cell in dryrun.cfgbase.cells_for(arch):
             for mesh in ("pod", "multipod"):
-                r = dryrun.run_cell(arch, cell.name, mesh)
-                check(r["executed"] is False and r["per_device"] is None,
-                      f"dryrun {arch} {cell.name} {mesh}: counted FLOPs "
-                      "for a placement the port does not run")
+                r = dryrun.jax_placement(cfg, cell, mesh)
+                check(r["memory"]["total_bytes"] > 0,
+                      f"dryrun {arch} {cell.name} {mesh}: no placement")
                 n_placed += 1
-    print(f"dryrun placements: {n_placed} pod and multipod cells in "
+    print(f"dryrun JAX placements: {n_placed} pod and multipod cells in "
           f"{time.perf_counter() - t_placed:.2f} s")
+    for r in model_axis:
+        print(f"dryrun executed {r['reduced']} on model rank "
+              f"{r['model_rank']} of {r['model']} (gloo ranks on one card): "
+              f"count equal {r['count_equal']} ({r['flops']} FLOPs, "
+              f"{r['bytes']} bytes, collectives {r['collectives']}; meta "
+              f"{r['meta_flops']}, {r['meta_bytes']}); median "
+              f"{r['measured_s'] * 1e3:.3f} ms of "
+              f"{[round(t * 1e3, 3) for t in r['step_s']]}; roofline share "
+              f"{r['roofline_share']:.4f}; kernels "
+              f"{ {k: v['calls'] for k, v in r['kernels'].items()} }")
+        check(r["count_equal"], f"dryrun model-axis cut, rank "
+              f"{r['model_rank']}: the count differs from meta's: "
+              f"{r['count_diff']}")
     executed = {}
     for arch, shape, n_layers, batch in DRYRUN_EXECUTED:
         r = dryrun.execute_cell(arch, shape, device, layers=n_layers,
@@ -2762,6 +3194,7 @@ def dryrun_phase(device) -> dict:
               f"{r['roofline_share']} > 1: the count is too large")
         free_memory()
     out = {"grid_count_s": grid, "placements": n_placed,
+           "model_axis_count_equal": [r["count_equal"] for r in model_axis],
            "executed": {k: {f: v[f] for f in (
                "reduced", "count_equal", "flops", "bytes", "measured_s",
                "compute_s", "memory_s", "roofline_share", "mfu")}
@@ -2801,6 +3234,8 @@ def bwd_line(name, source, forward, label, rows, launches) -> dict:
 LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:38",
                "flash_attention": "src/repro/kernels/flash_attention.py:118",
                "decode_attention": "src/repro/kernels/decode_attention.py:71",
+               "decode_attention_slice":
+               "src/repro/kernels/decode_attention.py:71",
                "moe_gmm": "src/repro/kernels/moe_gmm.py:50"}
 
 
@@ -2835,6 +3270,8 @@ def serve_lm(device, arch: str) -> dict:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
         return dp_worker(json.loads(Path(sys.argv[2]).read_text()))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-worker":
+        return tp_worker(json.loads(Path(sys.argv[2]).read_text()))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card only",
               file=sys.stderr)
@@ -2876,6 +3313,9 @@ def main() -> int:
     # once more under the profiler; h2o-danube-1.8b, then
     # granite-moe-3b-a800m (each phase frees its model before the next)
     lm_rows = lm_kernel_phase(device)
+    # decode attention over a slice of each ring, with its log-sum-exp
+    # (the model axis's tick)
+    lm_rows.update(decode_slice_phase(device))
     lm_parity_phase(device)
     serve = serve_lm(device, LM_ARCH)
     lm_rows.update(moe_kernel_phase(device))
@@ -2927,9 +3367,14 @@ def main() -> int:
     # data-parallel training: 2 ranks against one process on the global
     # batch, the ranks' bits equal, one rank the plain trainer's bits
     print("data parallel: " + json.dumps(dp_train_phase(device)))
+    # the model axis: 2 gloo ranks on the card against one process
+    # (float32 parity, granite's step), h2o whole in bf16, and the dry
+    # run's model-axis cut
+    axis = model_axis_phase(device)
     # the dry run: meta counts of the grid, and three cells executed on
-    # the card, each count equal to its meta count at the same cut
-    dryrun_phase(device)
+    # the card, each count equal to its meta count at the same cut, and
+    # the model-axis cut's ranks
+    dryrun_phase(device, axis["dryrun"])
     # the kernel's line: one 1024-frame chunk of the full-width operator,
     # its five conv layers (the main path's largest dispatch); the bound
     # is the larger of their summed bytes and summed operations' times
@@ -2963,7 +3408,19 @@ def main() -> int:
            if name in training["launches"] else {})
           for name, label in (("rmsnorm", "2048x2560 bfloat16"),
                               ("flash_attention", "B=1 S=2048 bfloat16"),
-                              ("decode_attention", "bfloat16"))] +
+                              ("decode_attention", "bfloat16"))
+          if name != "decode_attention"] +
+        [lm_line("decode_attention", lm_rows,
+                 serve["launches"]["decode_attention"], "bfloat16") | {
+            "slice": {"shape": "rows 2048..4095 of 8 rings of 4096, "
+                      "with each head's log-sum-exp (the model axis)",
+                      "launches": axis["serve"]["launches"][
+                          "decode_attention"],
+                      **{k: v for k, v in lm_line(
+                          "decode_attention_slice", lm_rows, 0,
+                          "bfloat16").items()
+                         if k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}}] +
         [lm_line("moe_gmm", granite_rows, moe_serve["launches"]["moe_gmm"],
                  "C=512 1536->512 bfloat16") | {
                      "train_launches": training["launches"]["moe_gmm"],

@@ -1,4 +1,4 @@
-"""The hand-written kernels' share of the op count.
+"""The hand-written kernels' and the collectives' share of the op count.
 
 The op count (``launch/op_analysis.py``) sees aten ops through a
 dispatch mode, but not a kernel: ``build.launch`` is a raw-pointer call.
@@ -10,6 +10,10 @@ itself and builds nothing when no counter is in use:
     with (count.kernel("rmsnorm", cost(x.shape, x.dtype), x.dtype)
           if count.ACTIVE else count.NOT_COUNTING):
         ...
+
+A collective of the model axis (``parallel/ops.py``) reports its kind
+and its output bytes through ``collective`` in the same way, on every
+device: sent over a process group, or only shaped on ``meta``.
 """
 from __future__ import annotations
 
@@ -47,3 +51,16 @@ class kernel:
 
     def __exit__(self, *exc) -> None:
         self.counter.paused -= 1
+
+
+class collective(kernel):
+    """A collective's body under the innermost active counter: ``kind``
+    (``all-gather``) and its output bytes a device are added to the
+    counter's collectives, and the aten ops of the body (the receive
+    buffers, the backend's own copies) are not counted."""
+
+    __slots__ = ()
+
+    def __init__(self, kind: str, nbytes: int):
+        self.counter = ACTIVE[-1]
+        self.counter.add_collective(kind, nbytes)

@@ -67,6 +67,16 @@
 // Every head of a group runs the same code over the same rows in the
 // same order, so a head's bits depend neither on its place in the group
 // nor on the slots beside it.
+//
+// A slice of a ring (decode_attention_part): under a "model" axis each
+// rank holds rows row0 .. row0 + S - 1 of a ring of S_total rows
+// (models/attention.py), and ring row row0 + r is valid iff
+// row0 + r <= pos or pos >= S_total, so a slice's valid rows are still a
+// prefix of it, possibly empty. Each (slot, head) may also give its
+// float32 log-sum-exp, m + log(l) of the scaled scores, which the merge
+// of the ranks' partial outputs reads; a slot with no valid row in the
+// slice gets zeros and -inf, written by its first split's blocks. One
+// process passes row0 = 0, S_total = S and no log-sum-exp.
 #include "common.cuh"
 
 #include <stdint.h>
@@ -136,10 +146,14 @@ __device__ __forceinline__ void launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-__device__ __forceinline__ int valid_rows(const int* pos, int b, int S) {
+// The valid rows of slot b's slice: a prefix of it, 0 .. S.
+__device__ __forceinline__ int valid_rows(const int* pos, int b, int S,
+                                          int row0, int S_total) {
   if (pos == nullptr) return S;
   const int p = pos[b];
-  return p >= S ? S : p + 1;
+  if (p >= S_total) return S;
+  const int n = p - row0 + 1;
+  return n < 0 ? 0 : n > S ? S : n;
 }
 
 // What every block of one launch shares.
@@ -151,7 +165,9 @@ struct Args {
   void* out;
   float* part_acc;   // (B * H, NS, D) partial accumulators
   float2* part_ml;   // (B * H, NS) partial (max, sum)
+  float* lse;        // (B * H) log-sum-exp, or null
   int H, KV, S, NS, split, GB;   // GB: query heads a block takes
+  int row0, S_total;             // the slice's first ring row, the ring
   float scale;
 };
 
@@ -168,7 +184,7 @@ __device__ __forceinline__ bool place(const Args& a, Place& p) {
   const int group = a.H / a.KV;
   p.h0 = p.kvh * group + blockIdx.z * a.GB;
   p.n_heads = min(a.GB, group - (int)blockIdx.z * a.GB);
-  const int n_valid = valid_rows(a.pos, p.b, a.S);
+  const int n_valid = valid_rows(a.pos, p.b, a.S, a.row0, a.S_total);
   p.ns = (n_valid + a.split - 1) / a.split;
   p.r0 = p.sp * a.split;
   p.r1 = min(n_valid, p.r0 + a.split);
@@ -196,11 +212,25 @@ __device__ __forceinline__ void emit(const Args& a, const Place& p, int D,
   const long long row = (long long)p.b * a.H + p.h0 + hl;
   if (p.ns == 1) {
     store4<T>((T*)a.out + row * D + d4 * 4, acc, l);
+    if (a.lse != nullptr && d4 == 0) a.lse[row] = m + logf(l);
     return;
   }
   const long long at = row * a.NS + p.sp;
   reinterpret_cast<float4*>(a.part_acc + at * D)[d4] = acc;
   if (d4 == 0) a.part_ml[at] = make_float2(m, l);
+}
+
+// A slot with no valid row in the slice: its heads' output zeros and
+// log-sum-exp -inf, from the blocks of its first split.
+template <typename T>
+__device__ __forceinline__ void empty_slot(const Args& a, const Place& p,
+                                           int D) {
+  if (p.ns != 0 || p.sp != 0) return;
+  for (int i = threadIdx.x; i < p.n_heads * D; i += blockDim.x) {
+    const long long row = (long long)p.b * a.H + p.h0 + i / D;
+    ((T*)a.out)[row * D + i % D] = from_float<T>(0.0f);
+    if (a.lse != nullptr && i % D == 0) a.lse[row] = -INFINITY;
+  }
 }
 
 // Pass 2: one warp per (slot, head, slab of 32 float2 columns) merges
@@ -218,8 +248,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(32 * kCombineWarps)
     decode_combine(const float* __restrict__ part_acc,
                    const float2* __restrict__ part_ml,
-                   const int* __restrict__ pos, T* __restrict__ out, int BH,
-                   int H, int S, int NS, int split) {
+                   const int* __restrict__ pos, T* __restrict__ out,
+                   float* __restrict__ lse, int BH, int H, int S, int NS,
+                   int split, int row0, int S_total) {
   constexpr int D2 = D / 2;
   constexpr int SLABS = (D2 + 31) / 32;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -228,8 +259,9 @@ __global__ void __launch_bounds__(32 * kCombineWarps)
   const int col = (warp % SLABS) * 32 + (threadIdx.x & 31);
   const int lane = threadIdx.x & 31;
   if (row >= BH) return;
-  const int ns = (valid_rows(pos, row / H, S) + split - 1) / split;
-  if (ns == 1) return;
+  const int ns =
+      (valid_rows(pos, row / H, S, row0, S_total) + split - 1) / split;
+  if (ns <= 1) return;           // written by pass 1
   const float2* ml = part_ml + (long long)row * NS;
   const float2* acc =
       reinterpret_cast<const float2*>(part_acc + (long long)row * NS * D) +
@@ -276,6 +308,7 @@ __global__ void __launch_bounds__(32 * kCombineWarps)
     dst[0] = from_float<T>(o.x * inv);
     dst[1] = from_float<T>(o.y * inv);
   }
+  if (lse != nullptr && col == 0) lse[row] = mx + logf(l);
 }
 
 // -- bfloat16: tensor cores ---------------------------------------------------
@@ -313,7 +346,10 @@ __global__ void __launch_bounds__(32 * MT * WK)
   constexpr int C8 = D / 8;              // 16-byte chunks of a row
   extern __shared__ __align__(16) unsigned char smem[];
   Place p;
-  if (!place(a, p)) return;
+  if (!place(a, p)) {
+    empty_slot<__nv_bfloat16>(a, p, D);
+    return;
+  }
 
   using bf16 = __nv_bfloat16;
   bf16* q_s = reinterpret_cast<bf16*>(smem);                 // 16*MT x LD
@@ -510,7 +546,10 @@ __global__ void __launch_bounds__(32 * NW) decode_f32(const Args a) {
   constexpr int HG = kF32Threads / C4;       // head sets
   extern __shared__ __align__(16) float fsm[];
   Place p;
-  if (!place(a, p)) return;
+  if (!place(a, p)) {
+    empty_slot<float>(a, p, D);
+    return;
+  }
 
   const int GB = p.n_heads;
   float* ring = fsm;                                   // STAGES x {K, V}
@@ -724,8 +763,8 @@ int combine(const Args& a, int B, cudaStream_t s) {
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, decode_combine<T, D>, (const float*)a.part_acc,
-      (const float2*)a.part_ml, a.pos, (T*)a.out, rows, a.H, a.S, a.NS,
-      a.split);
+      (const float2*)a.part_ml, a.pos, (T*)a.out, a.lse, rows, a.H, a.S,
+      a.NS, a.split, a.row0, a.S_total);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -746,18 +785,21 @@ int fwd(const Args& a, int dtype, int B, dim3 grid, cudaStream_t s) {
 // valid. `split`: cache rows of a block of pass 1, a positive multiple of
 // 64, chosen by the caller from S, D, the group size and the type.
 // `part`: float32 scratch of B * H * ceil(S / split) * (D + 2) floats.
-// Launches both passes on `stream` and returns cudaGetLastError(); 0
-// means launched. The caller (kernels/decode_attention.py) has checked
-// shapes (D one of 16, 32, 64, 80, 128, 256, KV dividing H), types,
+// k, v hold rows row0 .. row0 + S - 1 of a ring of S_total rows; `lse`:
+// float32 (B * H) or null. Launches both passes on `stream` and returns
+// cudaGetLastError(); 0 means launched. The caller
+// (kernels/decode_attention.py) has checked shapes (D one of 16, 32, 64,
+// 80, 128, 256, KV dividing H, 0 <= row0, row0 + S <= S_total), types,
 // contiguity and 16-byte alignment.
-extern "C" int decode_attention_fwd(const void* q, const void* k,
-                                    const void* v, const void* pos,
-                                    void* out, void* part, int dtype, int B,
-                                    int H, int KV, int S, int D, int split,
-                                    float scale, void* stream) {
+extern "C" int decode_attention_part(const void* q, const void* k,
+                                     const void* v, const void* pos,
+                                     void* out, void* part, void* lse,
+                                     int dtype, int B, int H, int KV, int S,
+                                     int D, int split, int row0, int S_total,
+                                     float scale, void* stream) {
   if (B == 0 || H == 0) return 0;
   if (KV <= 0 || H % KV || split <= 0 || split % kRowsBf16 || S <= 0 ||
-      (dtype != 0 && dtype != 1))
+      row0 < 0 || row0 + S > S_total || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int group = H / KV;
   const int gb = group < kMaxHeads ? group : kMaxHeads;
@@ -772,12 +814,15 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   a.part_acc = (float*)part;
   a.part_ml = reinterpret_cast<float2*>((float*)part +
                                         (size_t)B * H * NS * D);
+  a.lse = (float*)lse;
   a.H = H;
   a.KV = KV;
   a.S = S;
   a.NS = NS;
   a.split = split;
   a.GB = gb;
+  a.row0 = row0;
+  a.S_total = S_total;
   a.scale = scale;
   const dim3 grid((unsigned)NS, (unsigned)(B * KV), (unsigned)chunks);
   const cudaStream_t s = (cudaStream_t)stream;
@@ -790,4 +835,16 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
     case 256: return fwd<256>(a, dtype, B, grid, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The whole ring (row0 = 0, S_total = S) with no log-sum-exp, through
+// the C interface of the earlier sources, so that
+// benchmarks/torch_kernel_variant.py calls this build and theirs alike.
+extern "C" int decode_attention_fwd(const void* q, const void* k,
+                                    const void* v, const void* pos,
+                                    void* out, void* part, int dtype, int B,
+                                    int H, int KV, int S, int D, int split,
+                                    float scale, void* stream) {
+  return decode_attention_part(q, k, v, pos, out, part, nullptr, dtype, B,
+                               H, KV, S, D, split, 0, S, scale, stream);
 }

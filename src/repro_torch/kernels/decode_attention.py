@@ -7,7 +7,11 @@ kernel, and computes the model's decode attention
 (slot, head) against the slot's compact GQA ring cache, reading only the
 rows that ``pos`` marks valid. Its source is
 ``csrc/decode_attention.cu``; the note there gives its design and its
-bound.
+bound. Under a "model" axis (``models/attention.py``) a rank holds a
+slice of each ring, rows ``row0 .. row0 + S - 1`` of ``rows``, and asks
+for each (slot, head)'s log-sum-exp beside its output, which the merge
+of the ranks' partial outputs reads. One process passes the whole ring
+(row 0 of S) and no log-sum-exp to the same launch.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. A
 tensor on the card launches the kernel or raises: there is no fallback.
@@ -27,7 +31,7 @@ import torch
 from repro_torch.kernels import build, count, ref
 
 SIGNATURES = {
-    "decode_attention_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
+    "decode_attention_part": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 +
     [ctypes.c_float, ctypes.c_void_p],
 }
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the head dims the kernel compiles
@@ -71,27 +75,34 @@ def kernel_takes(n_heads: int, n_kv: int, head_dim: int) -> bool:
 
 
 def cost(q_shape, k_shape, dtype: torch.dtype, *, pos: bool = True,
-         n_valid: Optional[int] = None):
+         n_valid: Optional[int] = None, lse: bool = False):
     """(operations, bytes) of one launch: 4·D operations a valid cache
     row of each query head (Q.K^T and P.V); the valid rows of k and v
-    read once, q read and the output written once, and the int32
-    positions read (``pos``). ``n_valid``: the valid rows summed over the
-    slots, which follow from the positions' values; None counts every
-    ring row valid (a full cache), which is what the wrapper reports,
-    since it never reads the positions on the host."""
+    read once, q read and the output written once, the int32 positions
+    read (``pos``) and the float32 log-sum-exp written (``lse``).
+    ``n_valid``: the valid rows summed over the slots, which follow from
+    the positions' values; None counts every row of the slice valid (a
+    full cache), which is what the wrapper reports, since it never reads
+    the positions on the host."""
     B, H, D = q_shape
     S, KV = k_shape[1], k_shape[2]
     rows = B * S if n_valid is None else int(n_valid)
     nbytes = (2 * rows * KV * D + 2 * B * H * D) * dtype.itemsize
-    return 4 * D * H * rows, nbytes + (4 * B if pos else 0)
+    return 4 * D * H * rows, nbytes + (4 * B if pos else 0) + \
+        (4 * B * H if lse else 0)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B, H, D); k, v (B, S, KV, D) ring caches; pos (B,) absolute
-    positions (ring row r is valid iff r <= pos or pos >= S) or None
-    (every row valid) -> (B, H, D) in q's type. On the card ``pos`` is
-    int32. ``decode_attention.launches`` counts the kernel's launches."""
+                     pos: Optional[torch.Tensor] = None, *, row0: int = 0,
+                     rows: Optional[int] = None, lse: bool = False):
+    """q (B, H, D); k, v (B, S, KV, D) ring caches, or rows ``row0 ..
+    row0 + S - 1`` of rings of ``rows`` rows (default S); pos (B,)
+    absolute positions (ring row r is valid iff r <= pos or pos >=
+    ``rows``) or None (every row valid) -> (B, H, D) in q's type, and
+    with ``lse`` also the float32 (B, H) log-sum-exp of each head's
+    scaled scores over the slice's valid rows (-inf, and a zero output,
+    where there is none). On the card ``pos`` is int32.
+    ``decode_attention.launches`` counts the kernel's launches."""
     code = build.dtype_code(q, k, v)
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"decode attention takes q (B,H,D), k = v "
@@ -104,6 +115,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}")
     if pos is not None and tuple(pos.shape) != (B,):
         raise ValueError(f"pos has shape {tuple(pos.shape)}, not ({B},)")
+    rows = S if rows is None else int(rows)
+    if row0 < 0 or row0 + S > rows:
+        raise ValueError(f"rows {row0} .. {row0 + S - 1} are not a slice "
+                         f"of a ring of {rows}")
     for t in (k, v) + (() if pos is None else (pos,)):
         if t.device != q.device:
             raise ValueError(f"a tensor is on {t.device}, q on {q.device}")
@@ -111,14 +126,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode attention runs on cpu, cuda or meta, not "
                          f"{q.device}")
     with (count.kernel("decode_attention", cost(
-            q.shape, k.shape, q.dtype, pos=pos is not None), q.dtype)
-          if count.ACTIVE else count.NOT_COUNTING):
+            q.shape, k.shape, q.dtype, pos=pos is not None, lse=lse),
+            q.dtype) if count.ACTIVE else count.NOT_COUNTING):
         if q.device.type == "cpu":
-            return ref.decode_attention(q, k, v, pos)
+            return ref.decode_attention(q, k, v, pos, row0=row0, rows=rows,
+                                        lse=lse)
         _check_kernel(q, k, v, pos)
         if q.device.type == "meta":
-            return build.empty_like(q)
-        return _launch(q, k, v, pos, code)
+            out = build.empty_like(q)
+            return (out, torch.empty((B, H), dtype=torch.float32,
+                                     device=q.device)) if lse else out
+        return _launch(q, k, v, pos, code, row0, rows, lse)
 
 
 def _check_kernel(q, k, v, pos) -> None:
@@ -133,7 +151,7 @@ def _check_kernel(q, k, v, pos) -> None:
     build.check_launchable(q, k, v, *(() if pos is None else (pos,)))
 
 
-def _launch(q, k, v, pos, code) -> torch.Tensor:
+def _launch(q, k, v, pos, code, row0, rows, lse):
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     lib = build.load("decode_attention", SIGNATURES)
@@ -141,15 +159,17 @@ def _launch(q, k, v, pos, code) -> torch.Tensor:
     part = torch.empty(scratch_floats(B, H, S, D, split),
                        dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    build.launch(lib.decode_attention_fwd, q.device, q.data_ptr(),
+    lse_t = torch.empty((B, H), dtype=torch.float32,
+                        device=q.device) if lse else None
+    build.launch(lib.decode_attention_part, q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(),
                  None if pos is None else pos.data_ptr(), out.data_ptr(),
-                 part.data_ptr(), code, B, H, KV, S, D, split,
-                 1.0 / D ** 0.5,
-                 what=f"decode_attention at q {tuple(q.shape)}, "
-                      f"cache {tuple(k.shape)}")
+                 part.data_ptr(), None if lse_t is None else lse_t.data_ptr(),
+                 code, B, H, KV, S, D, split, row0, rows, 1.0 / D ** 0.5,
+                 what=f"decode_attention at q {tuple(q.shape)}, cache "
+                 f"{tuple(k.shape)}, rows {row0} of {rows}")
     decode_attention.launches += 1
-    return out
+    return (out, lse_t) if lse else out
 
 
 decode_attention.launches = 0

@@ -190,27 +190,40 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B, H, D) against the compact ring cache k, v (B, S, KV, D).
+                     pos: Optional[torch.Tensor] = None, *, row0: int = 0,
+                     rows: Optional[int] = None, lse: bool = False):
+    """q (B, H, D) against the compact ring cache k, v (B, S, KV, D), or
+    rows ``row0 .. row0 + S - 1`` of a ring of ``rows`` rows.
 
     ``pos`` (B,): the model's validity mask (``repro/models/attention.py
     ::decode_attention``): ring row r is valid iff ``r <= pos`` or
-    ``pos >= S``; None means every row is valid (the Pallas kernel's
+    ``pos >= rows``; None means every row is valid (the Pallas kernel's
     function). Float32 scores, softmax and P.V (the model rounds p to
     the cache type first; the kernels keep it float32), cast back to
-    q's type."""
+    q's type. With ``lse`` also the float32 (B, H) log-sum-exp of the
+    scaled scores over the valid rows: -inf, with a zero output, for a
+    slot with none in the slice."""
     H, D = q.shape[1], q.shape[2]
     S = k.shape[1]
+    total = S if rows is None else rows
     s = torch.einsum("bhd,bshd->bhs", q.float(),
                      expand_kv(k, H).float()) / (D ** 0.5)
+    valid = None
     if pos is not None:
-        rows = torch.arange(S, device=q.device)[None, :]
+        r = torch.arange(S, device=q.device)[None, :] + row0
         p = pos.to(q.device).long()[:, None]
-        valid = (rows <= p) | (p >= S)                            # (B, S)
+        valid = (r <= p) | (p >= total)                           # (B, S)
         s = s.masked_fill(~valid[:, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", p, expand_kv(v, H).float())
-    return out.to(q.dtype)
+    if not lse:
+        return out.to(q.dtype)
+    m = torch.logsumexp(s, dim=-1)                                # (B, H)
+    if valid is not None:
+        empty = ~valid.any(dim=-1)[:, None]                       # (B, 1)
+        out = out.masked_fill(empty[..., None], 0.0)
+        m = m.masked_fill(empty, float("-inf"))
+    return out.to(q.dtype), m
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

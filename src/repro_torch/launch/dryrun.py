@@ -23,13 +23,22 @@ Meshes (``launch/mesh.make_dryrun_mesh``):
   ``transformer.prefill``; decode = ``transformer.decode_step``. The
   node's collectives come from the port's own plan
   (``op_analysis.collective_plan``).
-* ``pod`` (16 x 16) and ``multipod`` (2 x 16 x 16) are the JAX package's
-  placements: FSDP over "data", heads, ffn and experts over "model". The
-  port has no "model" axis and does not run them (``"executed":
-  false``): the dry run reports each device's parameter, AdamW and cache
-  bytes under ``parallel/sharding.param_shardings`` and
-  ``cache_shardings`` with their fallbacks, and the model FLOPs, and
-  counts no FLOPs.
+* ``pod`` (16 x 16) and ``multipod`` (2 x 16 x 16) run the port's
+  "model" axis: one device's step is counted on ``meta`` at the
+  device's batch (the global batch over the pod and data axes; a batch
+  that does not divide replicates), with the model built for rank 0 of
+  the 16-way model axis (vocab, heads, kv heads where they divide, ffn,
+  experts and Mamba's d_inner split; ``models/transformer.placement``)
+  and its decode caches split by sequence over "model". The model
+  axis's collectives are the ones the step calls, counted as they run
+  (``parallel/ops.py``; nothing is sent on ``meta``); the data axis's
+  come from the port's plan (the gradient buckets summed over the
+  data ranks). ``memory`` is the port's placement: split over "model",
+  replicated over "data"; ``jax_memory`` keeps the JAX package's
+  (FSDP over "data" too, ``parallel/sharding.param_shardings`` and
+  ``cache_shardings``), with its fallbacks. The port's caches of a
+  batch of 1 are split over "model" only, where the JAX placement
+  spreads them over ("data", "model").
 
 The MoE dispatch allocates static capacity rows, whose shapes follow
 from the token count, so the counted expert work is the capacity's, not
@@ -42,7 +51,10 @@ has it.
 at a stated cut of depth and batch, under the same count, and holds its
 count to the ``meta`` count of the same cut (equal integers), then
 times the step with CUDA events and reads the time against the
-roofline terms.
+roofline terms. With ``model=m`` it is one rank of a model axis of m
+processes (the caller's ``torch.distributed`` group, e.g. gloo ranks on
+one card), whose count, collectives included, must equal the ``meta``
+count of one device of that axis.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh all
 
@@ -65,7 +77,8 @@ from repro_torch.configs import base as cfgbase
 from repro_torch.kernels.ops import Device, resolve_device
 from repro_torch.launch import op_analysis
 from repro_torch.launch import specs as specs_mod
-from repro_torch.launch.mesh import DRYRUN_MESHES, make_dryrun_mesh
+from repro_torch.launch.mesh import (DRYRUN_MESHES, Mesh, make_dryrun_mesh,
+                                     make_local_mesh)
 from repro_torch.models import transformer
 from repro_torch.parallel import sharding
 from repro_torch.train import optimizer as opt
@@ -84,9 +97,11 @@ NOTES = (
     "MoE expert work follows the dispatch's static capacity rows, not "
     "routed rows (on meta no token is routed)",
     "decode attention is counted over a full ring (every cache row valid)",
-    "collectives come from the port's plan (train_step.gradient_buckets, "
-    "parallel/ops.gather_sum); sum_gradients' local copies and adds are "
-    "not counted",
+    "data-axis collectives come from the port's plan "
+    "(train_step.gradient_buckets, parallel/ops.gather_sum); "
+    "sum_gradients' local copies and adds are not counted; model-axis "
+    "collectives (pod, multipod) are counted as the step calls them, an "
+    "all-gather's bytes being its output's",
     "memory counts weights, gradients, AdamW moments and caches, not "
     "activations")
 
@@ -148,19 +163,21 @@ def _random_inputs(cfg, cell, inputs: Dict, gen) -> None:
             t.fill_(cell.seq_len - 1)
 
 
-def build_step(cfg, cell, device: torch.device, batch: int):
+def build_step(cfg, cell, device: torch.device, batch: int, mesh=None):
     """(run, model): ``run()`` takes the cell's step once, through the
     step functions a user calls, at ``batch`` rows on ``device``, and
     returns its outputs (the train step's loss, the prefill's logits and
     caches, the decode's logits and caches). Weights and inputs are
     drawn from seed 0 (none on ``meta``); the count does not depend on
-    them."""
+    them. ``mesh``: the step of one rank of its model axis (its slice of
+    the model and caches, under the mesh); its batch is the rank's."""
     gen = None if device.type == "meta" else \
         torch.Generator(device=device).manual_seed(0)
     model = transformer.init_model(cfg, gen, device,
-                                   trainable=cell.kind == "train")
+                                   trainable=cell.kind == "train", mesh=mesh)
     if cell.kind == "decode":
-        inputs, caches = specs_mod.decode_specs(cfg, cell, batch, device)
+        inputs, caches = specs_mod.decode_specs(cfg, cell, batch, device,
+                                                mesh)
     else:
         inputs = (specs_mod.train_specs if cell.kind == "train" else
                   specs_mod.prefill_specs)(cfg, cell, batch, device)
@@ -168,28 +185,28 @@ def build_step(cfg, cell, device: torch.device, batch: int):
         _random_inputs(cfg, cell, inputs, gen)
     if cell.kind == "train":
         state = [opt.init_opt_state(dict(model.named_parameters()))]
-        step = steps.make_train_step(cfg, opt.AdamWConfig())
+        step = steps.make_train_step(cfg, opt.AdamWConfig(), mesh)
 
         def run():
             _, state[0], metrics = step(model, state[0], inputs)
             return metrics["loss"]
     elif cell.kind == "prefill":
-        prefill = steps.make_prefill_step(cfg)
+        prefill = steps.make_prefill_step(cfg, mesh)
 
         def run():
             return prefill(model, inputs)
     else:
-        decode = steps.make_decode_step(cfg)
+        decode = steps.make_decode_step(cfg, mesh)
 
         def run():
             return decode(model, caches, inputs)
     return run, model
 
 
-def count_step(cfg, cell, batch: int, device: Device = "meta"):
+def count_step(cfg, cell, batch: int, device: Device = "meta", mesh=None):
     """(the op count of one step, its outputs, the model)."""
     device = resolve_device(device)
-    run, model = build_step(cfg, cell, device, batch)
+    run, model = build_step(cfg, cell, device, batch, mesh)
     with op_analysis.count(device.type) as counter:
         out = run()
     return counter, out, model
@@ -209,18 +226,9 @@ def roofline(flops_by_class: Dict[str, int], nbytes: int,
             "dominant": dominant}
 
 
-def _executed_cell(cfg, cell, mesh_name: str) -> dict:
-    """A mesh the port executes: the step counted on ``meta`` at one
-    device's rows, the collectives from the port's plan."""
-    mesh = make_dryrun_mesh(mesh_name)
-    n = mesh.size
-    B = cell.global_batch
-    split = sharding.data_batch_specs(mesh, torch.empty((B,),
-                                                        device="meta"))
-    per_device = B // n if split and split[0] is not None else B
-    counter, out, model = count_step(cfg, cell, per_device)
-    train = cell.kind == "train"
-    coll = op_analysis.collective_plan(model, n, train)
+def _memory(model, out, train: bool) -> dict:
+    """A device's weights, gradients, AdamW moments (float32 m and v)
+    and caches (``out``'s), in bytes, and whether they fit a card."""
     params = _nbytes(list(model.parameters()))
     memory = {"params_bytes": params,
               "grads_bytes": params if train else 0,
@@ -229,23 +237,57 @@ def _executed_cell(cfg, cell, mesh_name: str) -> dict:
               "cache_bytes": 0 if train else _nbytes(out[1])}
     memory["total_bytes"] = sum(memory.values())
     memory["fits"] = memory["total_bytes"] <= CARD_MEMORY_BYTES
+    return memory
+
+
+def device_view(mesh: Mesh) -> Mesh:
+    """The mesh one device of ``mesh`` sees in the dry run: its own
+    rows (data axes of 1) and the whole model axis, with no group."""
+    return Mesh((), ("data", "model"),
+                {"data": 1, "model": int(mesh.shape.get("model", 1))})
+
+
+def _executed_cell(cfg, cell, mesh_name: str) -> dict:
+    """One device's step, counted on ``meta`` at its rows: a "model"
+    axis's collectives as the step calls them, the data axes' from the
+    port's plan. Under a model axis, the JAX placement's memory beside
+    the port's."""
+    mesh = make_dryrun_mesh(mesh_name)
+    ranks = mesh.processes                     # the batch axes' devices
+    B = cell.global_batch
+    per_device = B // ranks if B % ranks == 0 else B
+    counter, out, model = count_step(cfg, cell, per_device, "meta",
+                                     device_view(mesh))
+    train = cell.kind == "train"
+    coll = op_analysis.collective_plan(model, ranks, train)
+    for kind, row in counter.collectives.items():
+        coll[kind]["count"] += row["count"]
+        coll[kind]["bytes"] += row["bytes"]
+        coll["total_bytes"] += row["bytes"]
     mf = model_flops(cfg, cell)
-    return {"executed": True, "batch_per_device": per_device,
+    body = {"executed": True, "batch_per_device": per_device,
             "per_device": {"flops": counter.flops, "bytes": counter.bytes,
                            "flops_by_class": dict(counter.flops_by_class),
                            "collective_bytes": coll["total_bytes"],
                            "collectives": coll,
                            **counter.tables(),
                            "kernels": counter.summary()["kernels"]},
-            "memory": memory,
+            "memory": _memory(model, out, train),
             "roofline": roofline(counter.flops_by_class, counter.bytes,
                                  coll["total_bytes"]) |
             {"model_flops_global": mf,
-             "useful_flops_ratio": mf / max(counter.flops * n, 1)}}
+             "useful_flops_ratio": mf / max(counter.flops * mesh.size, 1)}}
+    if "model" in mesh.shape:
+        jax_side = jax_placement(cfg, cell, mesh_name)
+        body |= {"sharding_fallbacks": model.sharding_fallbacks(),
+                 "jax_memory": jax_side["memory"],
+                 "jax_sharding_fallbacks": jax_side["sharding_fallbacks"]}
+    return body
 
 
-def _placement_cell(cfg, cell, mesh_name: str) -> dict:
-    """The JAX placement's per-device bytes (not executed by the port)."""
+def jax_placement(cfg, cell, mesh_name: str) -> dict:
+    """The JAX placement's per-device bytes (FSDP over "data" and the
+    model axis)."""
     mesh = make_dryrun_mesh(mesh_name)
     specs = transformer.param_specs(cfg)
     fallbacks = []
@@ -289,8 +331,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str) -> dict:
     cfg = cfgbase.get_config(arch)
     cell = cfgbase.SHAPES[shape_name]
     mesh = make_dryrun_mesh(mesh_name)
-    body = (_executed_cell if mesh_name in ("card", "node") else
-            _placement_cell)(cfg, cell, mesh_name)
+    body = _executed_cell(cfg, cell, mesh_name)
     specs = transformer.param_specs(cfg)
     return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
             "mesh_shape": dict(mesh.shape), "n_devices": mesh.size,
@@ -347,7 +388,7 @@ def time_step(run, device: torch.device) -> list:
 
 def execute_cell(arch: str, shape_name: str, device: Device = None, *,
                  layers: Optional[int] = None, batch: Optional[int] = None,
-                 seq: Optional[int] = None, cfg=None) -> dict:
+                 seq: Optional[int] = None, cfg=None, model: int = 1) -> dict:
     """Run ``arch``'s ``shape_name`` step for real on ``device`` (the card
     unless the caller asks for the CPU), cut to ``layers`` layers and
     ``batch`` rows, under the op count; hold its count to the ``meta``
@@ -366,6 +407,13 @@ def execute_cell(arch: str, shape_name: str, device: Device = None, *,
     model's eager scan is counted and run in seconds. Each cut is listed
     in ``reduced``.
 
+    ``model``: run as one rank of a "model" axis over every process of
+    the caller's ``torch.distributed`` group (``make_local_mesh(device,
+    model=model)``, which must be the whole world: the data axis is 1),
+    each rank calling this; its count, the model axis's collectives
+    included, is held to the ``meta`` count of one device of that axis
+    (``device_view``), as integers.
+
     On the CPU a training step's count is not the card's: the
     optimizer's schedule runs on host scalars, which are the step's
     device there."""
@@ -381,8 +429,14 @@ def execute_cell(arch: str, shape_name: str, device: Device = None, *,
     if seq is not None:
         cell = dataclasses.replace(cell, seq_len=seq)
     B = batch or cell.global_batch
-    meta, _, _ = count_step(cfg, cell, B, "meta")
-    run, _ = build_step(cfg, cell, device, B)
+    mesh = make_local_mesh(device, model=model) if model > 1 else None
+    if mesh is not None and mesh.shape["data"] != 1:
+        raise ValueError(f"a model axis of {model} over "
+                         f"{mesh.shape['data'] * model} processes: the "
+                         "executed cell takes a model axis only")
+    meta, _, _ = count_step(cfg, cell, B, "meta",
+                            device_view(mesh) if mesh else None)
+    run, _ = build_step(cfg, cell, device, B, mesh)
     with op_analysis.count(device.type) as counter:
         run()
     _sync(device)
@@ -395,8 +449,12 @@ def execute_cell(arch: str, shape_name: str, device: Device = None, *,
                "seq": [cfgbase.SHAPES[shape_name].seq_len, cell.seq_len]}
     if cfg.d_model != full.d_model:
         reduced["d_model"] = [full.d_model, cfg.d_model]
+    if model > 1:
+        reduced["model_axis"] = [16, model]
     return {"arch": arch, "shape": shape_name, "device": str(device),
-            "reduced": reduced,
+            "reduced": reduced, "model": model,
+            "model_rank": mesh.model_rank if mesh else 0,
+            "collectives": counter.summary()["collectives"],
             "count_equal": counter.summary() == meta.summary(),
             "count_diff": count_diff(counter.summary(), meta.summary()),
             "flops": counter.flops, "bytes": counter.bytes,

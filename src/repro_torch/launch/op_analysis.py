@@ -28,10 +28,17 @@ So this module counts the ops themselves, as they run, on any device
   (the card's launch, the CPU's plain version, ``meta``'s empty result),
   with the aten ops of the wrapper's own body not counted. So a step
   counts the same on ``meta``, the CPU and the card.
-* **collectives**, from the port's own plan (``collective_plan``): the
-  float32 buckets that ``train/train_step.sum_gradients`` all-gathers,
-  and the gathers of ``parallel/ops.gather_sum`` (the loss's and each
-  MoE layer's router statistics), by type as the JAX ``collectives``.
+* **collectives of the model axis**, as they run: each of
+  ``parallel/ops.py``'s model-axis collectives reports its kind and its
+  output bytes through ``kernels/count.collective`` (on ``meta`` nothing
+  is sent, the receive buffers are only shaped), so a step under a
+  "model" axis counts its own gathers, those of a rematerialised
+  block's backward too;
+* **collectives of the data axis**, from the port's own plan
+  (``collective_plan``): the float32 buckets that
+  ``train/train_step.sum_gradients`` all-gathers, and the gathers of
+  ``parallel/ops.gather_sum`` (the loss's and each MoE layer's router
+  statistics), by type as the JAX ``collectives``.
 
 Counts are Python integers, so two counts of one step compare exactly.
 """
@@ -166,6 +173,7 @@ class OpCounter(TorchDispatchMode):
         self.op_calls: Dict[str, int] = defaultdict(int)
         self.flops_by_class: Dict[str, int] = defaultdict(int)
         self.kernels: Dict[str, Dict[str, int]] = {}
+        self.collectives: Dict[str, Dict[str, int]] = {}
         self.paused = 0
 
     # -- aten ops -----------------------------------------------------------
@@ -237,6 +245,11 @@ class OpCounter(TorchDispatchMode):
         row["bytes"] += int(nbytes)
         self.flops_by_class[flop_class] += int(flops)
 
+    def add_collective(self, kind: str, nbytes: int) -> None:
+        row = self.collectives.setdefault(kind, {"count": 0, "bytes": 0})
+        row["count"] += 1
+        row["bytes"] += int(nbytes)
+
     # -- totals ---------------------------------------------------------------
 
     @property
@@ -267,11 +280,14 @@ class OpCounter(TorchDispatchMode):
 
     def summary(self) -> dict:
         """Integers only: the totals, the FLOPs by peak class, every
-        kernel's calls, FLOPs and bytes, and the aten op calls."""
+        kernel's calls, FLOPs and bytes, the collectives' count and bytes
+        by kind, and the aten op calls."""
         return {"flops": self.flops, "bytes": self.bytes,
                 "flops_by_class": dict(sorted(self.flops_by_class.items())),
                 "kernels": {k: dict(v) for k, v in
                             sorted(self.kernels.items())},
+                "collectives": {k: dict(v) for k, v in
+                                sorted(self.collectives.items())},
                 "op_calls": dict(sorted(self.op_calls.items()))}
 
 

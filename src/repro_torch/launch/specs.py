@@ -55,13 +55,16 @@ def prefill_specs(cfg, cell, batch: Optional[int] = None,
     return out
 
 
-def decode_specs(cfg, cell, batch: Optional[int] = None, device="meta"):
+def decode_specs(cfg, cell, batch: Optional[int] = None, device="meta",
+                 mesh=None):
     """(``tokens`` (B, 1) and ``pos`` (B,), int32; the caches of a
-    ``seq_len`` context from ``init_caches``)."""
+    ``seq_len`` context from ``init_caches``, a rank's under ``mesh``'s
+    model axis)."""
     B = batch or cell.global_batch
     inputs = {"tokens": _zeros((B, 1), torch.int32, device),
               "pos": _zeros((B,), torch.int32, device)}
-    return inputs, transformer.init_caches(cfg, B, cell.seq_len, device)
+    return inputs, transformer.init_caches(cfg, B, cell.seq_len, device,
+                                           mesh=mesh)
 
 
 def input_specs(arch: str, shape_name: str):

@@ -15,6 +15,10 @@ dead (never routed to); the tree must hold ``padded_experts`` of them.
 ``trainable=True`` builds the model for training (``Transformer``); the
 dropped padded heads and experts take exactly zero gradient in the JAX
 package, so their absence changes no gradient of a kept weight.
+``mesh``: one rank's model of the mesh's "model" axis
+(``models/transformer.py``): the padded heads and experts are kept and
+each weight is cut to the rank's block, so the ranks together hold the
+JAX package's tree.
 """
 from __future__ import annotations
 
@@ -34,12 +38,13 @@ def _t(a) -> torch.Tensor:
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping,
-                    device: Device = None,
-                    trainable: bool = False) -> Transformer:
+                    device: Device = None, trainable: bool = False,
+                    mesh=None) -> Transformer:
     check_supported(cfg)
     device = resolve_device(device)
-    h = cfg.num_heads
-    hp = attention.padded_heads(h)
+    padded = mesh is not None and int(mesh.shape.get("model", 1)) > 1
+    hp = attention.padded_heads(cfg.num_heads)
+    h = hp if padded else cfg.num_heads
     n_pat = len(cfg.pattern)
     weights = {"embed": _t(tree["embed"]["table"]),
                "final_norm": _t(tree["final_norm"]["scale"]), "layers": []}
@@ -53,7 +58,8 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
         if spec.mixer in ("attn", "attn_window"):
             if np.shape(mix["wq"])[-2] != hp:
                 raise ValueError(f"wq has {np.shape(mix['wq'])[-2]} heads; "
-                                 f"the JAX package pads {h} to {hp}")
+                                 f"the JAX package pads {cfg.num_heads} to "
+                                 f"{hp}")
             w.update(wq=_t(mix["wq"][p][:, :h]), wk=_t(mix["wk"][p]),
                      wv=_t(mix["wv"][p]), wo=_t(mix["wo"][p][:h]))
         else:
@@ -62,9 +68,9 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
             ffn = blk["ffn"]
             w["norm2"] = _t(blk["norm2"]["scale"][p])
         if spec.ffn == "moe":
-            w["moe"] = moe.real_experts(
-                {n: _t(ffn[n][p]) for n in ("router", "wg", "wu", "wo")},
-                cfg.num_experts)
+            w["moe"] = {n: _t(ffn[n][p]) for n in ("router", "wg", "wu", "wo")}
+            if not padded:
+                w["moe"] = moe.real_experts(w["moe"], cfg.num_experts)
             if "shared" in ffn:
                 w["moe"]["shared"] = {n: _t(ffn["shared"][n][p])
                                       for n in ("wg", "wu", "wo")}
@@ -72,4 +78,4 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
             w.update(wg=_t(ffn["wg"][p]), wu=_t(ffn["wu"][p]),
                      ffn_wo=_t(ffn["wo"][p]))
         weights["layers"].append(w)
-    return Transformer(cfg, weights, device, trainable)
+    return Transformer(cfg, weights, device, trainable, mesh)

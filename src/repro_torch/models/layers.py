@@ -19,6 +19,15 @@ tree for its sharding rules and its dry run. The port's counterpart is
 ``ParamSpec``: one leaf of that tree (its path, its JAX shape, its type
 and its logical axes), listed from the config alone by
 ``models/transformer.py::param_specs``; no value is drawn or held.
+
+Under a "model" axis (``TP``: the axis's size and this rank's
+coordinate) the FFN holds wg's and wu's columns and wo's rows of its
+ffn slice, its input entering through ``parallel/ops.model_copy`` and
+its output leaving through ``model_sum``; the embedding's rows are split
+by vocab (``vocab_embed``: each rank looks up its own rows, the others
+masked to zero, then ``model_sum``), and so are the LM head's logits:
+``chunked_xent`` takes a log-sum-exp over the vocab shards and serving
+gathers the logits in rank order (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import ops as pops
 
 # mixer weights the JAX package casts to float32 where it reads them
 FLOAT32_WEIGHTS = ("A_log", "gn_scale", "r")
@@ -49,6 +59,12 @@ class ParamSpec(NamedTuple):
     @property
     def numel(self) -> int:
         return math.prod(self.shape)
+
+
+class TP(NamedTuple):
+    """A module's place on a "model" axis: its size and this rank."""
+    size: int
+    rank: int
 
 
 def weight(t: torch.Tensor, trainable: bool) -> nn.Parameter:
@@ -80,18 +96,25 @@ class RMSNorm(nn.Module):
 
 class FFN(nn.Module):
     """Dense SwiGLU: ``(silu(x @ wg) * (x @ wu)) @ wo``, the weights read
-    in the compute type (``use``)."""
+    in the compute type (``use``). ``tp``: the ffn dim is split over a
+    model axis (this rank's slice of it)."""
 
     def __init__(self, wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor,
-                 cdt: Optional[torch.dtype] = None, trainable: bool = False):
+                 cdt: Optional[torch.dtype] = None, trainable: bool = False,
+                 tp: Optional[TP] = None):
         super().__init__()
         self.wg, self.wu, self.wo = (weight(t, trainable)
                                      for t in (wg, wu, wo))
         self.cdt = cdt
+        self.tp = tp
+        self.split = {"wg", "wu", "wo"} if tp is not None else set()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(x, *(use(t, self.cdt)
-                           for t in (self.wg, self.wu, self.wo)))
+        if self.tp is not None:
+            x = pops.model_copy(x)
+        y = swiglu(x, *(use(t, self.cdt)
+                        for t in (self.wg, self.wu, self.wo)))
+        return pops.model_sum(y) if self.tp is not None else y
 
 
 class Mixer(nn.Module):
@@ -130,6 +153,19 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
+def vocab_embed(tokens: torch.Tensor, table: torch.Tensor,
+                tp: TP) -> torch.Tensor:
+    """The embedding of a table split by vocab rows over a model axis:
+    this rank's rows looked up, every other token masked to zero, summed
+    over the ranks in rank order (one rank adds a token's row to zeros,
+    so the sum is the row's bits)."""
+    n = table.shape[0]
+    local = tokens - tp.rank * n
+    own = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)] * own[..., None].to(table.dtype)
+    return pops.model_sum(rows)
+
+
 def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x (..., d) -> logits (..., V)."""
     return x @ table.T
@@ -162,24 +198,45 @@ def _xent_chunk(xc: torch.Tensor, table: torch.Tensor,
     return (lse - gold).sum()
 
 
+def _xent_chunk_split(xc: torch.Tensor, table: torch.Tensor,
+                      lc: torch.Tensor, rank: int) -> torch.Tensor:
+    """``_xent_chunk`` with ``table`` this rank's vocab rows: the max over
+    the ranks, the exp-sum summed in rank order, the gold logit from the
+    rank that owns it; no rank holds a whole (B, c, V) chunk."""
+    logits = (pops.model_copy(xc) @ table.T).float()          # (B, c, V/m)
+    top = pops.model_max(logits.detach().amax(dim=-1))
+    lse = top + pops.model_sum(
+        torch.exp(logits - top[..., None]).sum(dim=-1)).log()
+    n = table.shape[0]
+    local = lc.long() - rank * n
+    own = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = pops.model_sum(torch.where(own, gold, torch.zeros_like(gold)))
+    return (lse - gold).sum()
+
+
 def chunked_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
-                 chunk: int) -> torch.Tensor:
+                 chunk: int, tp: Optional[TP] = None) -> torch.Tensor:
     """x (B, S, d) in the compute type; table (V, d) in the compute type;
     labels (B, S) -> the mean NLL, float32
     (``repro/models/layers.py::chunked_xent``). The logits are computed
     ``chunk`` tokens at a time and each chunk is checkpointed, so the
-    (B, S, V) logits are never whole, in the forward or the backward."""
+    (B, S, V) logits are never whole, in the forward or the backward.
+    ``tp``: ``table`` is this rank's vocab rows of a model axis
+    (``_xent_chunk_split``)."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"the sequence {S} is not a multiple of the logit "
                          f"chunk {chunk}")
     total = torch.zeros((), dtype=torch.float32, device=x.device)
+    fn, extra = (_xent_chunk, ()) if tp is None else \
+        (_xent_chunk_split, (tp.rank,))
     for i in range(0, S, chunk):
         xc, lc = x[:, i:i + chunk], labels[:, i:i + chunk]
         if torch.is_grad_enabled():
-            total = total + checkpoint(_xent_chunk, xc, table, lc,
+            total = total + checkpoint(fn, xc, table, lc, *extra,
                                        use_reentrant=False)
         else:
-            total = total + _xent_chunk(xc, table, lc)
+            total = total + fn(xc, table, lc, *extra)
     return total / (B * S)

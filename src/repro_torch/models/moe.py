@@ -10,9 +10,25 @@ card before the sampler's copy.
 
 The JAX package pads the experts to its 16-way expert-parallel axis
 (``padded_experts``) and pins the dead experts' router logits to -1e30,
-so their probabilities are exactly 0 and they are never routed to. The
-port runs on one card and keeps only the real experts
-(``real_experts``), which changes no output and no aux loss.
+so their probabilities are exactly 0 and they are never routed to. A
+model of one process keeps only the real experts (``real_experts``),
+which changes no output and no aux loss.
+
+Under a "model" axis (``tp``) a rank holds its slice of the padded
+experts' wg, wu and wo (experts ``r·Ep/m … (r+1)·Ep/m - 1``, the dead
+ones never routed to) and every rank holds the router over the real
+experts. The batch is not split over "model", so the router, the routes
+and the capacity rows are the same on every rank and no all-to-all is
+needed: each rank fills and multiplies only its own experts' capacity
+rows, adds each token's contributions from its own experts in ascending
+expert order, adds its slice of the shared experts (split like the
+FFN), and the ranks' partial outputs are summed in rank order
+(``parallel/ops.model_sum``): within rounding of one process, not bit
+for bit (the one-process sum adds a token's k contributions in one
+chain). The aux losses come from the replicated router and are not
+summed over "model". The token rows and the routing weights enter the
+rank's experts through ``model_copy``, so the router's gradient is the
+whole one on every rank.
 
 Tokens are routed within ``G`` groups, as in the JAX package: ``G`` is
 the installed mesh's data-parallel shard count
@@ -104,7 +120,8 @@ def aux_losses(logits: torch.Tensor, probs: torch.Tensor,
 
 
 def moe_forward(x: torch.Tensor, params: Mapping, *, n_experts: int,
-                top_k: int, capacity_factor: float
+                top_k: int, capacity_factor: float,
+                tp: Optional[layers.TP] = None, shared_split: bool = False
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """x (B, S, d) in the compute type -> (y (B, S, d), (lb_loss,
     z_loss)), as ``repro/models/moe.py::moe_forward``. ``params``:
@@ -112,15 +129,20 @@ def moe_forward(x: torch.Tensor, params: Mapping, *, n_experts: int,
     real experts only, in the compute type; optional ``shared`` with a
     dense SwiGLU's ``wg``, ``wu``, ``wo``."""
     y, routing = moe_ffn(x, params, n_experts=n_experts, top_k=top_k,
-                         capacity_factor=capacity_factor)
+                         capacity_factor=capacity_factor, tp=tp,
+                         shared_split=shared_split)
     return y, aux_losses(*routing, n_experts)
 
 
 def moe_ffn(x: torch.Tensor, params: Mapping, *, n_experts: int,
-            top_k: int, capacity_factor: float):
+            top_k: int, capacity_factor: float,
+            tp: Optional[layers.TP] = None, shared_split: bool = False):
     """``moe_forward``'s output and its routing (logits, probs, gate_i)
     instead of the aux losses, which serving drops (the JAX package's
-    jitted decode never computes them; eager PyTorch would)."""
+    jitted decode never computes them; eager PyTorch would). ``tp``:
+    ``params``' experts are this rank's slice of a model axis (the
+    module's docstring), and with ``shared_split`` the shared experts'
+    ffn dim too."""
     B, S, d = x.shape
     router = params["router"]
     E = router.shape[-1]
@@ -167,15 +189,25 @@ def moe_ffn(x: torch.Tensor, params: Mapping, *, n_experts: int,
     base = se * rows_e if G == 1 else \
         se * rows_e + torch.div(sk, E, rounding_mode="floor") * cap
     slot = torch.where(keep, base + pos, E * rows_e)
+    xs, row = xf, base + pos.clamp_max(cap - 1)
+    if tp is not None:
+        # this rank's experts only: the other experts' entries go to the
+        # trash row and add zero
+        E = params["wg"].shape[0]
+        lo = tp.rank * E * rows_e
+        keep = keep & (base >= lo) & (base < lo + E * rows_e)
+        slot = torch.where(keep, base - lo + pos, E * rows_e)
+        row = torch.where(keep, slot, 0)
+        xs, sw = pops.model_copy(xf), pops.model_copy(sw)
     buf = torch.zeros(E * rows_e + 1, d, dtype=cdt, device=dev)
-    buf[slot] = xf[st] * keep[:, None].to(cdt)
+    buf[slot] = xs[st] * keep[:, None].to(cdt)
     buf = buf[:E * rows_e].view(E, rows_e, d)
 
     h = F.silu(ops.moe_gmm(buf, params["wg"])) * ops.moe_gmm(buf,
                                                              params["wu"])
     out_buf = ops.moe_gmm(h, params["wo"]).view(E * rows_e, d)
 
-    gathered = out_buf[base + pos.clamp_max(cap - 1)]
+    gathered = out_buf[row]
     contrib = gathered * (sw * keep).to(cdt)[:, None]      # sorted order
     # each token's k contributions, added in the compute type in sorted
     # order (ascending expert), as the JAX package's scatter-add runs
@@ -187,30 +219,44 @@ def moe_ffn(x: torch.Tensor, params: Mapping, *, n_experts: int,
     for j in range(1, k):
         y = y + contrib[rows[:, j]]
 
-    if "shared" in params:
-        s = params["shared"]
-        y = y + layers.swiglu(xf, s["wg"], s["wu"], s["wo"])
+    shared = params.get("shared")
+    split = shared is not None and tp is not None and shared_split
+    if split:                     # its partial sums join the experts'
+        y = y + layers.swiglu(xs, shared["wg"], shared["wu"], shared["wo"])
+    if tp is not None:
+        y = pops.model_sum(y)
+    if shared is not None and not split:
+        y = y + layers.swiglu(xf, shared["wg"], shared["wu"], shared["wo"])
     return y.reshape(B, S, d), (logits, probs, gate_i)
 
 
 class MoE(nn.Module):
     """The MoE FFN of a block, the real experts only (``real_experts``):
     weights in the compute type when serving, or held in the parameter
-    type and cast to ``cdt`` at use when training."""
+    type and cast to ``cdt`` at use when training. ``tp``: wg, wu and wo
+    are this rank's slice of the padded experts of a model axis; the
+    shared experts' ffn dim is split where ``shared_tp`` is given."""
 
     def __init__(self, w: Mapping, *, n_experts: int, top_k: int,
                  capacity_factor: float, cdt: Optional[torch.dtype] = None,
-                 trainable: bool = False):
+                 trainable: bool = False, tp: Optional[layers.TP] = None,
+                 shared_tp: Optional[layers.TP] = None):
         super().__init__()
         self.n_experts, self.top_k = n_experts, top_k
         self.capacity_factor = capacity_factor
         self.cdt = cdt
+        self.tp = tp
         self.router = layers.weight(w["router"], trainable)
         self.wg, self.wu, self.wo = (layers.weight(w[n], trainable)
                                      for n in ("wg", "wu", "wo"))
+        self.split = {"wg", "wu", "wo"} if tp is not None else set()
+        # the shared experts' partial sums join the experts' in one
+        # model_sum, so their FFN runs no collective of its own
         self.shared = layers.FFN(**w["shared"], cdt=cdt,
                                  trainable=trainable) \
             if "shared" in w else None
+        if self.shared is not None and shared_tp is not None:
+            self.shared.split = {"wg", "wu", "wo"}
 
     def params(self) -> Dict:
         c = self.cdt
@@ -223,11 +269,15 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return moe_ffn(x, self.params(), n_experts=self.n_experts,
-                       top_k=self.top_k,
-                       capacity_factor=self.capacity_factor)[0]
+                       top_k=self.top_k, capacity_factor=self.capacity_factor,
+                       tp=self.tp, shared_split=self._shared_split())[0]
 
     def forward_aux(self, x: torch.Tensor):
         """Training's forward: (y, (lb_loss, z_loss))."""
         return moe_forward(x, self.params(), n_experts=self.n_experts,
                            top_k=self.top_k,
-                           capacity_factor=self.capacity_factor)
+                           capacity_factor=self.capacity_factor, tp=self.tp,
+                           shared_split=self._shared_split())
+
+    def _shared_split(self) -> bool:
+        return self.shared is not None and bool(self.shared.split)

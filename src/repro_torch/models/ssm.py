@@ -9,8 +9,17 @@ across chunks, which bounds the (B, chunk, d_inner, d_state)
 intermediates as the JAX package's ``associative_scan`` inside
 ``lax.scan`` does. The JAX package computes the block with XLA ops and no
 Pallas kernel, so the port computes it with PyTorch ops; its projections
-are cuBLAS matmuls, as the dense layers' are. ``parallel/ops.shard`` is a
-no-op without a mesh and is dropped.
+are cuBLAS matmuls, as the dense layers' are.
+
+Under a "model" axis (``tp``) d_inner is split, as the JAX package's
+"ffn" axes place it: a rank holds its slice of each half of ``in_proj``
+([x | z], so its shard is not a contiguous slice of 2·di), of the conv,
+``dt_b``, ``A_log`` and ``D``, ``dt_w``'s columns, and ``x_proj``'s and
+``out_proj``'s rows. The input enters through ``parallel/ops.
+model_copy``; ``x_proj``'s dt_rank + 2N outputs are summed over the
+ranks (``model_sum``) and enter again through ``model_copy``; the
+output projection's partial sums leave through ``model_sum``. The scan,
+and the cache's ``h`` and conv tail, are the rank's d_inner slice.
 
 Weights (a ``layers.Mixer`` over ``mamba_forward`` and
 ``mamba_decode`` holds them): ``in_proj`` (d, 2*di), ``conv_w`` (K, di),
@@ -24,6 +33,8 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import ops as pops
 
 CHUNK = 512      # tokens a scan chunk (repro/models/ssm.py::mamba_forward)
 
@@ -87,8 +98,19 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor
     return a, b
 
 
+def _x_proj(xc: torch.Tensor, p, tp) -> torch.Tensor:
+    """x_proj's dt_rank + 2N outputs (summed over a model axis)."""
+    out = xc @ p["x_proj"]
+    return out if tp is None else pops.model_copy(pops.model_sum(out))
+
+
+def _out_proj(y: torch.Tensor, p, tp) -> torch.Tensor:
+    out = y @ p["out_proj"]
+    return out if tp is None else pops.model_sum(out)
+
+
 def mamba_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor], *,
-                  d_state: int, chunk: int = CHUNK
+                  d_state: int, chunk: int = CHUNK, tp=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill. x (B, L, d) in the compute type -> (out (B, L, d), cache
     with the final state ``h`` (B, di, N) float32 and the conv tail
@@ -99,9 +121,11 @@ def mamba_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor], *,
     c = chunk_of(L, chunk)
     di = p["in_proj"].shape[-1] // 2
     dt_rank = p["dt_w"].shape[-2]
+    if tp is not None:
+        x = pops.model_copy(x)
     xin, z = (x @ p["in_proj"]).split(di, dim=-1)
     xc = F.silu(causal_conv(xin, p["conv_w"], p["conv_b"]))
-    dt, Bc, Cc = (xc @ p["x_proj"]).split([dt_rank, d_state, d_state],
+    dt, Bc, Cc = _x_proj(xc, p, tp).split([dt_rank, d_state, d_state],
                                           dim=-1)
     dt = F.softplus(dt @ p["dt_w"] + p["dt_b"])
     A = -torch.exp(p["A_log"].float())                        # (di, N)
@@ -123,14 +147,14 @@ def mamba_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor], *,
         h = hs[:, -1].clone()
         del hs, h_loc
     y = torch.cat(ys, dim=1).to(x.dtype) + xc * p["D"]
-    out = (y * F.silu(z)) @ p["out_proj"]
+    out = _out_proj(y * F.silu(z), p, tp)
     K = p["conv_w"].shape[-2]
     return out, {"h": h, "conv": xin[:, L - (K - 1):].clone()}
 
 
 def mamba_decode(x: torch.Tensor, p: Mapping[str, torch.Tensor],
-                 cache: Mapping[str, torch.Tensor], *, d_state: int
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 cache: Mapping[str, torch.Tensor], *, d_state: int,
+                 tp=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token a row. x (B, 1, d); cache ``h`` (B, di, N), ``conv``
     (B, K-1, di) -> (out (B, 1, d), the new cache)."""
     di = p["in_proj"].shape[-1] // 2
@@ -138,7 +162,7 @@ def mamba_decode(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     xin, z = (x @ p["in_proj"]).split(di, dim=-1)             # (B,1,di)
     conv_in = torch.cat([cache["conv"], xin], dim=1)          # (B,K,di)
     xc = F.silu(conv_step(conv_in, p["conv_w"])[:, None] + p["conv_b"])
-    dt, Bc, Cc = (xc @ p["x_proj"]).split([dt_rank, d_state, d_state],
+    dt, Bc, Cc = _x_proj(xc, p, tp).split([dt_rank, d_state, d_state],
                                           dim=-1)
     dt = F.softplus(dt @ p["dt_w"] + p["dt_b"])
     A = -torch.exp(p["A_log"].float())
@@ -148,14 +172,17 @@ def mamba_decode(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     h = dA * cache["h"] + dBx
     y = torch.einsum("bdn,bn->bd", h, Cc[:, 0].float())[:, None]
     y = y.to(x.dtype) + xc * p["D"]
-    out = (y * F.silu(z)) @ p["out_proj"]
+    out = _out_proj(y * F.silu(z), p, tp)
     return out, {"h": h, "conv": conv_in[:, 1:]}
 
 
 def init_mamba_cache(batch: int, d: int, *, d_state: int, d_conv: int,
                      expand: int, dtype: torch.dtype,
-                     device: torch.device) -> Dict[str, torch.Tensor]:
-    di = d * expand
+                     device: torch.device,
+                     split: int = 1) -> Dict[str, torch.Tensor]:
+    """Zero state and conv tail; ``split``: d_inner is split over that
+    many model ranks (this rank's slice)."""
+    di = d * expand // split
     return {"h": torch.zeros(batch, di, d_state, dtype=torch.float32,
                              device=device),
             "conv": torch.zeros(batch, d_conv - 1, di, dtype=dtype,

@@ -11,10 +11,10 @@ them; the port holds one ``Block`` module per layer and loops over them,
 layer ``p * len(pattern) + j`` being period p's pattern position j.
 
 Entry points:
-  init_model(cfg, generator, device, trainable) -> Transformer
-  prefill(model, tokens, prefix_embeds)   -> (last_logits, caches)
+  init_model(cfg, generator, device, trainable, mesh) -> Transformer
+  prefill(model, tokens, prefix_embeds, cache_len) -> (last_logits, caches)
   decode_step(model, caches, tokens, pos) -> (logits, caches), in place
-  init_caches(cfg, batch, cache_len, device) -> caches
+  init_caches(cfg, batch, cache_len, device, mesh) -> caches
   forward_hidden(model, tokens, prefix_embeds) -> (x, (lb, z))
   train_loss(model, batch)                -> nll + 0.01 lb + 0.001 z
   param_specs(cfg)                        -> the JAX parameter tree's leaves
@@ -30,6 +30,26 @@ the compute type where it uses them, as the JAX layers do; with
 ``cfg.remat`` each block of ``forward_hidden`` is checkpointed
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` with
 nothing saveable), so its activations are recomputed in the backward.
+
+The "model" axis. ``init_model(..., mesh=...)`` and ``convert.
+params_from_jax(..., mesh=...)`` build one rank's model of a mesh whose
+"model" axis is m > 1 (``launch/mesh.make_local_mesh(device, model=m)``):
+the same weights as the whole model's, the JAX package's padded heads
+and experts kept, each weight cut to the rank's block by the port's
+placement (``placement``: ``parallel/sharding.model_rules`` over
+``param_specs``; vocab, heads, ffn, experts and Mamba's d_inner over
+"model"; the kv heads where ``attention.kv_split``; a dim m does not
+divide stays whole and is recorded, ``sharding_fallbacks()``). Such a
+model runs under ``parallel/ops.use_mesh`` of that mesh, and its
+entry points raise otherwise; its modules call the model axis's
+collectives (``parallel/ops.py``) in the same order on every rank, a
+rematerialised block's again in the backward. Its decode caches
+(``init_caches(..., mesh=...)``, ``prefill``) hold the rank's S/m ring
+rows of every kv head and its d_inner slice of a Mamba state. A
+parameter replicated over "model" (the norms, the router, a vocab that
+falls back) takes the same gradient, and keeps the same bits, on every
+model rank; ``model_split()`` says which are split, for the gradient
+norm (``train/optimizer.global_norm``).
 """
 from __future__ import annotations
 
@@ -43,6 +63,7 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.kernels.ops import Device, resolve_device
 from repro_torch.models import attention, layers, moe, ssm, xlstm
 from repro_torch.parallel import ops as pops
+from repro_torch.parallel import sharding
 
 Caches = List[Dict]
 
@@ -78,12 +99,16 @@ def check_prompt_length(cfg: ModelConfig, n: int) -> None:
 
 
 def recurrent_mixer(cfg: ModelConfig, mixer: str,
-                    w: Dict[str, torch.Tensor], **held) -> layers.Mixer:
+                    w: Dict[str, torch.Tensor], tp=None,
+                    **held) -> layers.Mixer:
     """The ``mamba``, ``mlstm`` or ``slstm`` mixer over its weights
-    (``held``: the compute type ``cdt`` and ``trainable``)."""
+    (``held``: the compute type ``cdt`` and ``trainable``; ``tp``: a
+    Mamba's d_inner is split over a model axis)."""
     if mixer == "mamba":
-        return layers.Mixer(w, ssm.mamba_forward, ssm.mamba_decode,
-                            d_state=cfg.mamba_d_state, **held)
+        mix = layers.Mixer(w, ssm.mamba_forward, ssm.mamba_decode,
+                           d_state=cfg.mamba_d_state, tp=tp, **held)
+        mix.split = {f"w.{n}" for n in w} if tp is not None else set()
+        return mix
     fns = {"mlstm": (xlstm.mlstm_forward, xlstm.mlstm_decode),
            "slstm": (xlstm.slstm_forward, xlstm.slstm_decode)}[mixer]
     return layers.Mixer(w, *fns, n_heads=cfg.num_heads, **held)
@@ -99,9 +124,11 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec,
                  w: Dict[str, torch.Tensor],
-                 cdt: Optional[torch.dtype] = None, trainable: bool = False):
+                 cdt: Optional[torch.dtype] = None, trainable: bool = False,
+                 tps: Optional[Dict[str, layers.TP]] = None):
         super().__init__()
         held = {"cdt": cdt, "trainable": trainable}
+        tps = tps or {}
         self.window = spec.window
         self.attends = spec.mixer in ("attn", "attn_window")
         self.norm1 = layers.RMSNorm(w["norm1"], cfg.norm_eps, trainable)
@@ -109,39 +136,36 @@ class Block(nn.Module):
             self.mixer = attention.Attention(
                 w["wq"], w["wk"], w["wv"], w["wo"], n_heads=cfg.num_heads,
                 n_kv=cfg.num_kv_heads, window=spec.window,
-                rope_theta=cfg.rope_theta, **held)
+                rope_theta=cfg.rope_theta, tp=tps.get("mixer"), **held)
         else:
-            self.mixer = recurrent_mixer(cfg, spec.mixer, w["mixer"], **held)
+            self.mixer = recurrent_mixer(cfg, spec.mixer, w["mixer"],
+                                         tps.get("mixer"), **held)
         self.norm2 = self.ffn = None
         if "moe" in w:
             self.ffn = moe.MoE(w["moe"], n_experts=cfg.num_experts,
                                top_k=cfg.top_k,
-                               capacity_factor=cfg.capacity_factor, **held)
+                               capacity_factor=cfg.capacity_factor,
+                               tp=tps.get("ffn"), shared_tp=tps.get("shared"),
+                               **held)
         elif "wg" in w:
-            self.ffn = layers.FFN(w["wg"], w["wu"], w["ffn_wo"], **held)
+            self.ffn = layers.FFN(w["wg"], w["wu"], w["ffn_wo"],
+                                  tp=tps.get("ffn"), **held)
         if self.ffn is not None:
             self.norm2 = layers.RMSNorm(w["norm2"], cfg.norm_eps, trainable)
 
     def _ffn(self, x):
         return x if self.ffn is None else x + self.ffn(self.norm2(x))
 
-    def forward(self, x, positions, emit_cache: bool):
+    def forward(self, x, positions, emit_cache: bool,
+                cache_len: Optional[int] = None):
         h = self.norm1(x)
         if not self.attends:
             out, cache = self.mixer(h)
             return self._ffn(x + out), cache if emit_cache else None
         out, (k, v) = self.mixer(h, positions)
-        cache = None
-        if emit_cache:
-            w = self.window
-            if w is not None and k.shape[1] > w:
-                # ring alignment: decode writes at row pos % w, so roll
-                # the kept tail such that row r holds position p with
-                # r == p % w
-                S = k.shape[1]
-                k = torch.roll(k[:, -w:], S % w, dims=1)
-                v = torch.roll(v[:, -w:], S % w, dims=1)
-            cache = {"k": k, "v": v}
+        # ring alignment: decode writes at row pos % S, so the ring's row
+        # r holds position p with r == p % S (``attention.ring``)
+        cache = self.mixer.cache(k, v, cache_len) if emit_cache else None
         return self._ffn(x + out), cache
 
     def train_forward(self, x, positions):
@@ -191,10 +215,13 @@ class Transformer(nn.Module):
     a dense SwiGLU)."""
 
     def __init__(self, cfg: ModelConfig, weights: Dict, device: torch.device,
-                 trainable: bool = False):
+                 trainable: bool = False, mesh=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        m = 1 if mesh is None else int(mesh.shape.get("model", 1))
+        self.tp = layers.TP(m, mesh.model_rank) if m > 1 else None
+        place, self.fallbacks = placement(cfg, mesh) if self.tp else ({}, [])
         cdt = torch_dtype(cfg.compute_dtype)
         # the type the weights are held in, and the one modules cast to
         held = torch_dtype(cfg.param_dtype) if trainable else cdt
@@ -211,13 +238,24 @@ class Transformer(nn.Module):
                         else cast(t))
                     for n, t in w.items()}
 
-        self.embed = layers.weight(cast(weights["embed"]), trainable)
+        def vocab(t, path):
+            return _cut(t, place[path], mesh, self.tp) if self.tp else t
+
+        self.vocab_tp = self.tp if self.tp and \
+            "model" in place[("embed", "table")] else None
+        self.embed = layers.weight(cast(vocab(weights["embed"],
+                                              ("embed", "table"))), trainable)
         self.unembed = None if cfg.tie_embeddings else \
-            layers.weight(cast(weights["unembed"]), trainable)
+            layers.weight(cast(vocab(weights["unembed"],
+                                     ("unembed", "table"))), trainable)
         blocks = []
         for i, w in enumerate(weights["layers"]):
-            blocks.append(Block(cfg, cfg.pattern[i % len(cfg.pattern)],
-                                cast_block(w), self.cdt, trainable))
+            j = i % len(cfg.pattern)
+            tps = None
+            if self.tp:
+                w, tps = _cut_layer(cfg, j, w, place, mesh, self.tp)
+            blocks.append(Block(cfg, cfg.pattern[j], cast_block(w),
+                                self.cdt, trainable, tps))
             del w           # freed before the next layer is drawn
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = layers.RMSNorm(
@@ -232,8 +270,11 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return layers.embed(tokens, layers.use(self.embed, self.cdt)) * \
-            self.embed_scale
+        table = layers.use(self.embed, self.cdt)
+        if self.vocab_tp is not None:
+            return layers.vocab_embed(tokens, table, self.vocab_tp) * \
+                self.embed_scale
+        return layers.embed(tokens, table) * self.embed_scale
 
     def _table(self) -> torch.Tensor:
         """The LM head's table in the compute type."""
@@ -241,7 +282,39 @@ class Transformer(nn.Module):
         return layers.use(table, self.cdt)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return layers.unembed_logits(x, self._table())
+        """The whole vocab's logits, gathered in rank order where the
+        vocab is split over a model axis (every rank samples alike)."""
+        logits = layers.unembed_logits(x, self._table())
+        if self.vocab_tp is not None:
+            logits = pops.model_gather(logits, dim=-1)
+        return logits
+
+    def check_axis(self) -> None:
+        """Raise unless the installed mesh's model axis is the one this
+        model was built for (one rank's weights run only under it)."""
+        m, r = self.tp if self.tp else (1, 0)
+        if pops.model_size() != m or (m > 1 and pops.model_rank() != r):
+            raise ValueError(f"the model was built for rank {r} of a model "
+                             f"axis of {m}; the installed mesh is rank "
+                             f"{pops.model_rank()} of {pops.model_size()}: "
+                             "run it under parallel/ops.use_mesh of its "
+                             "mesh")
+
+    def model_split(self) -> Dict[str, bool]:
+        """Which parameters are split over the model axis, by
+        ``named_parameters`` name (all False without one)."""
+        split = set()
+        for prefix, mod in self.named_modules():
+            for n in getattr(mod, "split", ()):
+                split.add(f"{prefix}.{n}" if prefix else n)
+        if self.vocab_tp is not None:
+            split |= {"embed", "unembed"}
+        return {n: n in split for n, _ in self.named_parameters()}
+
+    def sharding_fallbacks(self) -> list:
+        """The dims the model axis does not divide, kept whole
+        (``parallel/sharding.explain_fallbacks``)."""
+        return sharding.explain_fallbacks(self.fallbacks)
 
     def decay_mask(self) -> Dict[str, bool]:
         """Which weights AdamW decays, by ``named_parameters`` name: the
@@ -267,16 +340,18 @@ def _draw(generator: Optional[torch.Generator], shape,
                        dtype=torch.float32).mul_(scale)
 
 
-def _draw_moe(cfg: ModelConfig, g: torch.Generator) -> Dict:
+def _draw_moe(cfg: ModelConfig, g: torch.Generator,
+              padded: bool = False) -> Dict:
     """One layer's MoE weights: ``repro/models/moe.py::init_moe``'s
     shapes over the padded experts (the fan-in of wg, wu and wo is
-    shape[-2], their true fan-in), then the real experts kept."""
+    shape[-2], their true fan-in), then the real experts kept (all of
+    them kept when ``padded``)."""
     d, f = cfg.d_model, cfg.resolved_d_ff_expert
     ep = moe.padded_experts(cfg.num_experts)
-    p = moe.real_experts({"router": _draw(g, (d, ep)),
-                          "wg": _draw(g, (ep, d, f)),
-                          "wu": _draw(g, (ep, d, f)),
-                          "wo": _draw(g, (ep, f, d))}, cfg.num_experts)
+    p = {"router": _draw(g, (d, ep)), "wg": _draw(g, (ep, d, f)),
+         "wu": _draw(g, (ep, d, f)), "wo": _draw(g, (ep, f, d))}
+    if not padded:
+        p = moe.real_experts(p, cfg.num_experts)
     if cfg.num_shared_experts:
         fs = f * cfg.num_shared_experts
         p["shared"] = {"wg": _draw(g, (d, fs)), "wu": _draw(g, (d, fs)),
@@ -324,22 +399,25 @@ def _draw_mixer(cfg: ModelConfig, mixer: str, g: torch.Generator) -> Dict:
 
 
 def _draw_layer(cfg: ModelConfig, spec: BlockSpec,
-                g: torch.Generator) -> Dict:
+                g: torch.Generator, padded: bool = False) -> Dict:
+    """One layer's weights; ``padded``: the JAX package's padded query
+    heads and experts kept (a model axis's layout)."""
     d, kv, hd, f = (cfg.d_model, cfg.num_kv_heads, cfg.resolved_head_dim,
                     cfg.d_ff)
     dev = g.device if g is not None else torch.device("meta")
     w = {"norm1": torch.ones(d, device=dev)}
     if spec.mixer in ("attn", "attn_window"):
         h, hp = cfg.num_heads, attention.padded_heads(cfg.num_heads)
-        w.update(wq=_draw(g, (d, hp, hd))[:, :h],
+        keep = hp if padded else h
+        w.update(wq=_draw(g, (d, hp, hd))[:, :keep],
                  wk=_draw(g, (d, kv, hd)), wv=_draw(g, (d, kv, hd)),
-                 wo=_draw(g, (hp, hd, d))[:h])
+                 wo=_draw(g, (hp, hd, d))[:keep])
     else:
         w["mixer"] = _draw_mixer(cfg, spec.mixer, g)
     if spec.ffn != "none":
         w["norm2"] = torch.ones(d, device=dev)
     if spec.ffn == "moe":
-        w["moe"] = _draw_moe(cfg, g)
+        w["moe"] = _draw_moe(cfg, g, padded)
     elif spec.ffn == "dense":
         w.update(wg=_draw(g, (d, f)), wu=_draw(g, (d, f)),
                  ffn_wo=_draw(g, (f, d)))
@@ -459,8 +537,94 @@ def param_specs(cfg: ModelConfig) -> List[layers.ParamSpec]:
     return out
 
 
+def placement(cfg: ModelConfig, mesh):
+    """The port's placement of ``cfg``'s weights over ``mesh``'s model
+    axis: {JAX path: spec} (``param_specs``' paths, the specs of
+    ``parallel/sharding.param_shardings`` under ``model_rules``, the kv
+    heads replicated where ``attention.kv_split`` is false), and the
+    fallback records."""
+    m = int(mesh.shape.get("model", 1))
+    fallbacks: list = []
+    specs = param_specs(cfg)
+    placed = sharding.param_shardings(specs, mesh, sharding.model_rules(mesh),
+                                      fallbacks)
+    out = {}
+    kv_whole = not attention.kv_split(cfg.num_heads, cfg.num_kv_heads, m)
+    for p, spec in zip(specs, placed):
+        if p.path[-1] in ("wk", "wv") and "kv_heads" in p.axes and \
+                kv_whole and "model" in spec:
+            spec = tuple(None if e == "model" else e for e in spec)
+            fallbacks.append(("kv_heads", cfg.num_kv_heads, ("model",)))
+        out[p.path] = spec
+    return out, fallbacks
+
+
+def _cut(t: torch.Tensor, spec, mesh, tp: layers.TP) -> torch.Tensor:
+    """This rank's block of ``t`` by ``spec``, a tensor of its own."""
+    return sharding.local_shard(t, spec, mesh, {"model": tp.rank}).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _cut_layer(cfg: ModelConfig, j: int, w: Dict, place, mesh,
+               tp: layers.TP):
+    """Pattern position j's layer weights ``w`` (padded heads and
+    experts, the JAX layout unstacked) cut to this rank's blocks, and the
+    model axis of each of its modules that is split ({"mixer", "ffn",
+    "shared"} -> TP)."""
+    blk = ("blocks", j)
+
+    def spec(*path):
+        return place[blk + path][1:]          # the layer axis dropped
+
+    def cut(t, *path):
+        return _cut(t, spec(*path), mesh, tp)
+
+    def split(*path):
+        return "model" in spec(*path)
+
+    out, tps = dict(w), {}
+    if "mixer" in w:
+        mix = dict(w["mixer"])
+        if "in_proj" in mix:                  # Mamba: [x | z], each cut
+            half = mix["in_proj"].shape[-1] // 2
+            mix["in_proj"] = torch.cat(
+                [cut(t, "mixer", "in_proj") for t in
+                 mix["in_proj"].split(half, dim=-1)], dim=-1)
+        for n in mix:
+            if n != "in_proj":
+                mix[n] = cut(mix[n], "mixer", n)
+        out["mixer"] = mix
+        if "in_proj" in mix and split("mixer", "conv_b"):
+            tps["mixer"] = tp
+    else:
+        for n in ("wq", "wk", "wv", "wo"):
+            out[n] = cut(w[n], "mixer", n)
+        if split("mixer", "wq"):
+            tps["mixer"] = tp
+    if "wg" in w:
+        out.update(wg=cut(w["wg"], "ffn", "wg"), wu=cut(w["wu"], "ffn", "wu"),
+                   ffn_wo=cut(w["ffn_wo"], "ffn", "wo"))
+        if split("ffn", "wg"):
+            tps["ffn"] = tp
+    if "moe" in w:
+        e = dict(w["moe"])
+        e["router"] = e["router"][:, :cfg.num_experts].clone()
+        for n in ("wg", "wu", "wo"):
+            e[n] = cut(e[n], "ffn", n)
+        if split("ffn", "wg"):
+            tps["ffn"] = tp
+        if "shared" in e:
+            e["shared"] = {n: cut(t, "ffn", "shared", n)
+                           for n, t in e["shared"].items()}
+            if split("ffn", "shared", "wg"):
+                tps["shared"] = tp
+        out["moe"] = e
+    return out, tps
+
+
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-               device: Device = None, trainable: bool = False) -> Transformer:
+               device: Device = None, trainable: bool = False,
+               mesh=None) -> Transformer:
     """Random weights with the JAX package's distributions, drawn from
     ``generator`` (a CPU generator seeded 0 if None) on the generator's
     device, then cast to the compute type on ``device`` (the card
@@ -470,9 +634,12 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     weight has the JAX package's scale and the real experts their own
     draws. On ``device="meta"`` (the dry run) nothing is drawn, no
     generator is used and no memory is taken: every weight is an empty
-    meta tensor of its shape and type."""
+    meta tensor of its shape and type. ``mesh``: build this rank's model
+    of the mesh's "model" axis (the module's docstring): the same draws,
+    each weight cut to the rank's block."""
     check_supported(cfg)
     device = resolve_device(device)
+    padded = mesh is not None and int(mesh.shape.get("model", 1)) > 1
     if device.type == "meta":
         g = None
     else:
@@ -485,8 +652,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         weights["unembed"] = _draw(g, (cfg.vocab_size, d), d ** -0.5)
     weights["layers"] = (_draw_layer(cfg, cfg.pattern[i % len(cfg.pattern)],
-                                     g) for i in range(cfg.num_layers))
-    return Transformer(cfg, weights, device, trainable)
+                                     g, padded)
+                         for i in range(cfg.num_layers))
+    return Transformer(cfg, weights, device, trainable, mesh)
 
 
 def forward_hidden(model: Transformer, tokens: torch.Tensor,
@@ -498,6 +666,7 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor,
     With ``cfg.remat`` and grad enabled each block is checkpointed: its
     forward is run again in the backward, and routes the same tokens to
     the same experts because every forward kernel is bit-reproducible."""
+    model.check_axis()
     x = model._embed(tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -525,7 +694,7 @@ def train_loss(model: Transformer, batch: Dict) -> torch.Tensor:
     x, (lb, z) = forward_hidden(model, batch["tokens"], prefix)
     npfx = 0 if prefix is None else prefix.shape[1]
     nll = layers.chunked_xent(x[:, npfx:], model._table(), batch["labels"],
-                              model.cfg.logit_chunk)
+                              model.cfg.logit_chunk, model.vocab_tp)
     if pops.data_process_group() is not None:
         # data-parallel: every rank holds as many tokens, so the global
         # mean is the mean of the ranks' means (the aux losses are global
@@ -536,20 +705,25 @@ def train_loss(model: Transformer, batch: Dict) -> torch.Tensor:
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor,
-            prefix_embeds: Optional[torch.Tensor] = None):
+            prefix_embeds: Optional[torch.Tensor] = None,
+            cache_len: Optional[int] = None):
     """tokens (B, S), and a frontend's prefix embeddings (B, P, d) placed
     before them -> (logits of the last position (B, 1, V), caches): one
     a layer, ``{"k", "v"}`` (B, P+S, KV, D) for attention (window layers
     rolled into ring order once P+S exceeds the window), the mixer's
     cache for a recurrent layer (``h`` and ``conv`` for Mamba, ``state``
-    and ``conv`` for mLSTM, ``state`` for sLSTM)."""
+    and ``conv`` for mLSTM, ``state`` for sLSTM). ``cache_len``: the
+    attention caches as rings of that many rows (``init_caches``'),
+    position p at row p % S. Under a model axis each attention cache is
+    this rank's rows of its ring, every kv head."""
+    model.check_axis()
     x = model._embed(tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     caches = []
     for block in model.blocks:
-        x, cache = block(x, positions, emit_cache=True)
+        x, cache = block(x, positions, emit_cache=True, cache_len=cache_len)
         caches.append(cache)
     # the last position of every row, contiguous: the norm's kernel takes
     # contiguous rows (a (B, 1, d) slice of B > 1 rows is not)
@@ -564,6 +738,7 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
     different depths). Each attention layer's ring cache gets the new k,
     v at row ``pos % S``, each recurrent layer's cache its new state, in
     place; returns (logits (B, 1, V), caches)."""
+    model.check_axis()
     pos = pos.to(device=model.device, dtype=torch.int32).reshape(-1)
     x = model._embed(tokens)
     for block, cache in zip(model.blocks, caches):
@@ -572,14 +747,19 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
-                device: Device = None) -> Caches:
+                device: Device = None, mesh=None) -> Caches:
     """Zeroed decode caches, one a layer (``prefill``'s leaves at
     ``batch`` rows; attention's k, v at ``cache_len`` ring rows, or the
-    window's), recurrent states at their initial values."""
+    window's), recurrent states at their initial values. ``mesh``: this
+    rank's caches under the mesh's model axis (its rows of each ring,
+    its d_inner slice of a Mamba state where d_inner divides)."""
     check_supported(cfg)
     device = resolve_device(device)
     cdt = torch_dtype(cfg.compute_dtype)
     d, H = cfg.d_model, cfg.num_heads
+    m = 1 if mesh is None else int(mesh.shape.get("model", 1))
+    tp = layers.TP(m, mesh.model_rank) if m > 1 else None
+    di_split = m if m > 1 and (d * cfg.mamba_expand) % m == 0 else 1
     out = []
     for i in range(cfg.num_layers):
         spec = cfg.pattern[i % len(cfg.pattern)]
@@ -587,7 +767,7 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
             c = ssm.init_mamba_cache(batch, d, d_state=cfg.mamba_d_state,
                                      d_conv=cfg.mamba_d_conv,
                                      expand=cfg.mamba_expand, dtype=cdt,
-                                     device=device)
+                                     device=device, split=di_split)
         elif spec.mixer == "mlstm":
             c = xlstm.init_mlstm_cache(batch, d, n_heads=H,
                                        expand=cfg.mlstm_expand, dtype=cdt,
@@ -597,6 +777,6 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
         else:
             c = attention.init_cache(batch, cache_len, cfg.num_kv_heads,
                                      cfg.resolved_head_dim, spec.window,
-                                     cdt, device)
+                                     cdt, device, tp)
         out.append(c)
     return out

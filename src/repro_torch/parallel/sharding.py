@@ -14,13 +14,18 @@ Default rules:
   batch  -> ("pod", "data") as far as the mesh has them
 
 The port runs the batch rule (``data_batch_specs``: the rows a
-data-parallel rank trains on) and the scoring rules below.
+data-parallel rank trains on), the scoring rules below, and the "model"
+rules: vocab, heads, kv heads, ffn and experts over "model"
+(``model_rules``: the default rules without "embed" -> "data", the FSDP
+half of the JAX placement, which the port does not run yet).
 ``param_shardings`` and ``cache_shardings`` place the parameters (the
 JAX layout of ``models/transformer.py::param_specs``) and the decode
 caches (stacked over periods, ``launch/specs.stacked_caches``) by the
-rules, as the JAX package's do, fallbacks recorded; the dry run
-(``launch/dryrun.py``) reads them for the per-device bytes of the JAX
-placements over a "model" axis, which the port does not execute.
+rules, as the JAX package's do, fallbacks recorded; ``local_shard``
+cuts a rank's block of a leaf by its spec, which is how a model is
+built for one rank of a "model" axis (``models/transformer.py``). The
+dry run (``launch/dryrun.py``) reads them for the per-device bytes of
+the JAX placement (``jax_memory``) beside the port's.
 """
 from __future__ import annotations
 
@@ -43,6 +48,41 @@ def default_rules(mesh) -> Dict[str, Tuple[str, ...]]:
         "head_dim": (),
         "layer": (),
     }
+
+
+def model_rules(mesh) -> Dict[str, Tuple[str, ...]]:
+    """The placement the port runs: ``default_rules`` with "embed" not
+    split, so the weights are split over "model" only and replicated
+    over "data"."""
+    return dict(default_rules(mesh), embed=())
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shard(t, spec: Spec, mesh, coords: Dict[str, int]):
+    """This rank's block of ``t`` placed by ``spec``: each dim whose
+    entry names mesh axes that ``coords`` (axis -> this rank's
+    coordinate) all hold is cut into the axes' product of equal blocks
+    and the block at the coordinates (the first axis of the entry the
+    slowest) is kept; every other dim is whole. A view of ``t``."""
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes or any(a not in coords for a in axes):
+            continue
+        k, i = 1, 0
+        for a in axes:
+            k *= int(mesh.shape[a])
+            i = i * int(mesh.shape[a]) + int(coords[a])
+        n = t.shape[dim]
+        if n % k:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                             f"divide over {axes} of {k}")
+        t = t.narrow(dim, i * (n // k), n // k)
+    return t
 
 
 def _axis_size(mesh, axes: Tuple[str, ...]) -> int:

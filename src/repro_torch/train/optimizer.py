@@ -10,7 +10,11 @@ in the parameters' order. It is not ``torch.optim.AdamW``, which decays
 every tensor: here only those ``decay`` marks (by default the tensors of
 two or more dimensions, the JAX package's rule; a model passes its own
 ``decay_mask``). The update runs one parameter at a time, so the float32
-temporaries are one parameter's size, not the model's.
+temporaries are one parameter's size, not the model's. Under a "model"
+axis (``split``: the model's ``model_split()``) the global norm adds the
+split parameters' squares over the model ranks (``parallel/ops.
+model_sum``, rank order) to the replicated ones', so every rank clips by
+the whole model's norm and with the same bits.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import math
 from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
+
+from repro_torch.parallel import ops as pops
 
 Tree = Dict[str, torch.Tensor]
 
@@ -65,13 +71,22 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Mapping[str, torch.Tensor],
+                split: Optional[Mapping[str, bool]] = None) -> torch.Tensor:
     """sqrt of the sum of every entry's square, float32, the leaves'
-    sums added in the tree's order."""
-    total = None
-    for g in tree.values():
+    sums added in the tree's order. ``split``: the leaves split over the
+    installed model axis, whose sum is summed over its ranks and added
+    to the others'."""
+    total = part = None
+    for n, g in tree.items():
         s = g.float().square().sum()
-        total = s if total is None else total + s
+        if split is not None and split[n]:
+            part = s if part is None else part + s
+        else:
+            total = s if total is None else total + s
+    if part is not None:
+        part = pops.model_sum(part)
+        total = part if total is None else total + part
     if total is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(total)
@@ -80,13 +95,15 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
                   grads: Mapping[str, torch.Tensor], state: OptState,
-                  decay: Optional[Mapping[str, bool]] = None):
+                  decay: Optional[Mapping[str, bool]] = None,
+                  split: Optional[Mapping[str, bool]] = None):
     """One AdamW step, in place: each parameter and its m and v are
     overwritten. Returns (params, the new state, metrics ``grad_norm``
     and ``lr``). ``decay``: which parameters take the decoupled decay
-    (default: those of two or more dimensions)."""
+    (default: those of two or more dimensions); ``split``: which are
+    split over the installed model axis (``global_norm``)."""
     step = state.step + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads, split)
     dev = gn.device
     scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
     lr = schedule(cfg, step)

@@ -22,6 +22,15 @@ of the global one), and the ranks' gradients are summed in a fixed order
 (``sum_gradients``): all-gathered in buckets and added rank 0 first in
 float32, so every rank holds the same bits whatever the collective's
 reduction tree, and clipping and AdamW then update every rank alike.
+
+The "model" axis (a mesh of ``make_local_mesh(device, model=m)``, with
+the model built for the rank: ``transformer.init_model(..., mesh=...)``):
+the rank takes the rows of its data coordinate, runs its slice of the
+model under the mesh (the model axis's collectives inside the model),
+sums its gradients over its data group only, and AdamW clips by the
+whole model's norm (``optimizer.global_norm`` over the model's
+``model_split()``). The prefill and decode steps run under the mesh too,
+on the rows of the rank's data coordinate.
 """
 from __future__ import annotations
 
@@ -164,9 +173,7 @@ def loss_and_grads(model, batch, mesh=None):
     for p in params.values():
         p.grad = None
     batch = to_batch(shard_batch(mesh, batch), model.device)
-    ctx = pops.use_mesh(mesh, sharding.default_rules(mesh)) \
-        if mesh is not None else contextlib.nullcontext()
-    with ctx:
+    with _mesh(mesh):
         loss = transformer.train_loss(model, batch)
         loss.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -178,33 +185,50 @@ def loss_and_grads(model, batch, mesh=None):
     return loss.detach(), grads
 
 
+def _mesh(mesh):
+    """``parallel/ops.use_mesh`` of ``mesh`` with its rules (nothing
+    without one)."""
+    return pops.use_mesh(mesh, sharding.default_rules(mesh)) \
+        if mesh is not None else contextlib.nullcontext()
+
+
 def make_train_step(cfg, opt_cfg: opt.AdamWConfig, mesh=None):
     """``mesh``: None for one process, or a mesh of
-    ``launch/mesh.make_local_mesh`` (data-parallel over its ranks)."""
+    ``launch/mesh.make_local_mesh`` (data-parallel over its data axis,
+    the model split over its model axis)."""
     def train_step(model, opt_state: opt.OptState, batch):
         _check(cfg, model)
         loss, grads = loss_and_grads(model, batch, mesh)
-        _, opt_state, metrics = opt.apply_updates(
-            opt_cfg, dict(model.named_parameters()), grads, opt_state,
-            decay=model.decay_mask())
+        with _mesh(mesh):
+            _, opt_state, metrics = opt.apply_updates(
+                opt_cfg, dict(model.named_parameters()), grads, opt_state,
+                decay=model.decay_mask(),
+                split=model.model_split() if model.tp else None)
         del grads
         return model, opt_state, dict(metrics, loss=loss)
     return train_step
 
 
-def make_prefill_step(cfg):
+def make_prefill_step(cfg, mesh=None, cache_len=None):
+    """``mesh``: run under it, on this rank's rows; ``cache_len``: the
+    caches as rings of that many rows (``transformer.prefill``)."""
     def prefill_step(model, batch):
         _check(cfg, model)
-        b = to_batch(batch, model.device)
-        return transformer.prefill(model, b["tokens"], b.get("prefix_embeds"))
+        b = to_batch(shard_batch(mesh, batch), model.device)
+        with _mesh(mesh):
+            return transformer.prefill(model, b["tokens"],
+                                       b.get("prefix_embeds"), cache_len)
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, mesh=None):
+    """``mesh``: run under it, on this rank's rows and caches."""
     def decode_step(model, caches, batch):
         _check(cfg, model)
-        b = to_batch(batch, model.device)
-        return transformer.decode_step(model, caches, b["tokens"], b["pos"])
+        b = to_batch(shard_batch(mesh, batch), model.device)
+        with _mesh(mesh):
+            return transformer.decode_step(model, caches, b["tokens"],
+                                           b["pos"])
     return decode_step
 
 
