@@ -17,12 +17,12 @@ against its plain PyTorch version at every conv layer shape of the
 reduced operator family, and the scorer's dense and head kernel against
 its own, the scoring runtime against the plain forward and its three
 dispatch layers against each other (bit for bit), and one Retrieval
-query for "bus" on the 6 h Banff scene, scored through the kernels, then
+query for "bus" on 1 h of the Banff scene, scored through the kernels, then
 once more under the CUDA profiler for the card's busy time. The grouped
 launches of the stacked superbatch (every member bit for bit the
 ungrouped kernel's, timed beside 8 ungrouped launches and cuDNN's grouped
 convolution), and the multi-query path: 8 mixed queries (Retrieval,
-Tagging, both Countings) over three 0.5 h cameras, each standalone and
+Tagging, both Countings) over three 0.25 h cameras, each standalone and
 then through the FleetScheduler, bit for bit the same answers with fewer
 dispatches, untraced and traced, and once more over a scoring mesh
 (every card where there are two or more, else the one card named twice:
@@ -64,20 +64,28 @@ the kernel path against the plain path; granite-moe-3b-a800m at its
 published config for 10 AdamW steps of 4 x 1024 tokens through
 ``repro_torch.launch.train`` (the last step traced); and xlstm-125m's
 resume through ``repro_torch.launch.train``, bit for bit; and data-parallel
-training over ``torch.distributed`` (2 ranks as processes, NCCL over two
-cards or gloo with both on the one card): a float32 step of 2 full-width
-granite layers against one process on the global batch with 2 MoE groups,
-3 bf16 AdamW steps with the ranks' parameters bit for bit equal after each,
-and one rank through the same path bit for bit the plain trainer. Then the
-dry run (``repro_torch.launch.dryrun``): one cell of each kind counted on
-PyTorch's ``meta`` device on the ``card`` and ``node`` meshes, the ``pod``
-and ``multipod`` placements of every cell, and three cells executed on the
-card (h2o-danube-1.8b's 32k prefill at batch 1 and its decode tick at
-batch 8, granite-moe-3b-a800m's 4k training step cut to 2 layers at batch
-4), each counted on the card exactly as on ``meta`` and timed against its
-roofline terms (a share above 1 fails). It prints the results, the card's own
-wall-clock numbers, one JSON line with every kernel, and as its last
-line
+training over ``torch.distributed``, FSDP over "data" (2 ranks as
+processes, NCCL over two cards or gloo with both on the one card; each
+rank holds its slices of the weights and AdamW moments, gathers a
+block's weights where it runs and reduce-scatters their gradients): a
+float32 step of 2 full-width granite layers against one process on the
+global batch with 2 MoE groups, each rank's gradient slices bit for bit
+``sum_gradients``' slices of the whole, 2 bf16 AdamW steps with the
+ranks' gathered parameters and scalars bit for bit equal after each and
+each rank's peak memory, a step of the whole model on every rank beside
+them, and one rank through the same path bit for bit the plain trainer;
+then the "model" axis on 2 gloo ranks. Then the dry run
+(``repro_torch.launch.dryrun``): one cell of each kind counted on
+PyTorch's ``meta`` device on the ``card``, ``node`` and ``pod`` meshes,
+the ``pod`` and ``multipod`` placements of every cell, three cells
+executed on the card (h2o-danube-1.8b's 32k prefill at batch 1 and its
+decode tick at batch 8, granite-moe-3b-a800m's 4k training step cut to
+2 layers at batch 4), each counted on the card exactly as on ``meta``
+and timed against its roofline terms (a share above 1 fails), and the
+model-axis and FSDP cuts executed on 2 gloo ranks, each rank's count,
+collectives included, that of one device on ``meta``. It prints the
+results, the card's own wall-clock numbers, one JSON line with every
+kernel, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
 non-zero, and so does a host without a CUDA card.
 """
@@ -145,7 +153,13 @@ SCORE_TOL = 1e-5
 N = 1024                     # OperatorRuntime.CHUNK: the largest dispatch
 FAMILY = [(2, 8, 16, 25), (3, 16, 32, 50), (4, 16, 32, 50), (5, 32, 64, 100)]
 MAIN_OP = (5, 32, 64, 100)   # the full-width operator the query ships
-HOURS = 6.0                  # the corpus's default scene length
+# the query's scene: 1 h of the corpus's 6 h (the query runs twice,
+# untraced and traced; 6 h took ~140 s of the smoke's 1200 s limit, 2 h
+# 70-86 s, most of it training the operators)
+HOURS = 1.0
+# greedy tokens a served request (64 took ~140 s for the eight serves of
+# h2o, granite, jamba and xlstm)
+SERVE_NEW = 32
 KERNELS = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention",
            "moe_gmm", "scorer_head", "flash_attention_bwd")
 LM_ARCH = "h2o-danube-1.8b"  # examples/serve_lm.py's default model
@@ -214,7 +228,7 @@ HYBRID_GMM_DIMS = ((4096, 14336), (14336, 4096))
 # 512 or 256 tokens, or a multiple of it): the parity phases' four, and
 # the serves' draws, 128-256 tokens or one of 512, 1024, 2048
 RECURRENT_PROMPTS = (5, 77, 1024, 2048)
-RECURRENT_LONG = (512, 1024, 2048)
+RECURRENT_LONG = (512, 1024)   # not 2048: xlstm's eager sLSTM took ~20 s
 # the mixers alone: a prompt's prefill and an 8-slot decode step
 SCAN_TOKENS, SCAN_SLOTS = 2048, 8
 HYBRID_LABEL = "C=320 4096->14336 bfloat16"   # jamba's row in the kernels line
@@ -240,9 +254,13 @@ RESUME_ARCH = XLSTM_ARCH
 RESUME_BATCH, RESUME_SEQ, RESUME_STEPS = 4, 256, 8
 # data-parallel training (dp_train_phase): 2 ranks on 2 full-width granite
 # layers (wq and wk at their true fan-in), the global batch of 4 x 1024
-# split 2 x 1024 a rank; 3 bf16 AdamW steps; each group of ranks under a
+# split 2 x 1024 a rank; 2 bf16 AdamW steps; each group of ranks under a
 # time limit
-DP_RANKS, DP_STEPS, DP_TIMEOUT = 2, 3, 420
+DP_RANKS, DP_STEPS, DP_TIMEOUT = 2, 2, 420
+# the dry run's FSDP cut: arch, shape, layers, the data ranks' rows
+# (timed as every executed cell, ``dryrun.ITERS`` steps after
+# ``WARMUP``: a step ~5 s, gloo through the host)
+DP_DRYRUN = ("granite-moe-3b-a800m", "train_4k", 2, 4)
 # the stacked superbatch: members of a grouped launch checked against the
 # ungrouped kernel (the fleet's group_max is 8), images a member in the
 # check, the head's row counts (the small layer's 20 real rows, the
@@ -252,9 +270,12 @@ GROUP_N = 256
 GROUP_MS = (20, 64, 1024)
 GROUP_TIMED = 8
 # the fleet: tests/test_fleet.py's 8 mixed queries over three cameras,
-# make_env's 150 training steps, the reduced family; 0.5 h of video each
-# (at 1 h the phase took 275-340 s and the script 763-864 s of its 1200)
-FLEET_HOURS = 0.5
+# the reduced family; 0.25 h of video each (at 1 h the phase took
+# 275-340 s and the script 763-864 s of its 1200; at 0.5 h the four fleet
+# runs ~150 s, at 0.25 h ~130 s); 50 training steps an operator (make_env's
+# 150 took most of the fleet's host time)
+FLEET_HOURS = 0.25
+FLEET_TRAIN_STEPS = 50
 FLEET_CAMERAS = ("JacksonH", "Banff", "Miami")
 FLEET_SPECS = (("JacksonH", "retrieval", {"max_passes": 2}),
                ("Banff", "retrieval", {"max_passes": 2}),
@@ -961,7 +982,7 @@ def _progress(p) -> tuple:
 
 
 def fleet_phase(device, hours: float = FLEET_HOURS,
-                train_steps: int = 150) -> dict:
+                train_steps: int = FLEET_TRAIN_STEPS) -> dict:
     """The 8 mixed queries of ``FLEET_SPECS`` over three cameras, ``hours``
     of video each, through the port's entry points, three times: each
     query standalone on a fresh runtime; all eight through an uncontended
@@ -1870,10 +1891,11 @@ def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
     ring rows) serving the published ``arch`` (h2o-danube-1.8b,
     granite-moe-3b-a800m, jamba-v0.1-52b cut to one period, xlstm-125m;
     bfloat16) with random weights: prompts of 128-2048 tokens (for a
-    recurrent model 128-256 tokens or one of 512, 1024, 2048, lengths its
-    scans' chunks take), 64 greedy tokens each. Host wall of each prefill
-    and each decode tick (each ends in the sampler's copy to the host,
-    so the card has finished), time to first token per request, and the
+    recurrent model 128-256 tokens or one of ``RECURRENT_LONG``, lengths
+    its scans' chunks take), ``SERVE_NEW`` greedy tokens each. Host wall
+    of each prefill and each decode tick (each ends in the sampler's copy
+    to the host, so the card has finished), time to first token per
+    request, and the
     LM kernels' launches: the model's kernels all launched and no other,
     the grouped expert matmul 3 times per MoE layer per forward."""
     cfg = served_config(arch)
@@ -1908,7 +1930,7 @@ def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
         wall["decoded"] += n
 
     eng._prefill_into, eng._tick = timed_prefill, timed_tick
-    rids = [eng.submit(p, max_new=64) for p in prompts]
+    rids = [eng.submit(p, max_new=SERVE_NEW) for p in prompts]
     profiler = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]) \
         if trace else contextlib.nullcontext()
@@ -1924,7 +1946,8 @@ def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
         t_wall = time.perf_counter() - t0
     launches = lm_launches()
     check(sorted(res) == sorted(rids) and
-          all(len(res[r]) == 64 for r in rids), "not every request finished")
+          all(len(res[r]) == SERVE_NEW for r in rids),
+          "not every request finished")
     check(all(0 <= t < cfg.vocab_size for r in rids for t in res[r]),
           "a token outside the vocabulary")
     n_moe = sum(cfg.pattern[i % len(cfg.pattern)].ffn == "moe"
@@ -2486,7 +2509,7 @@ def resume_phase(device) -> dict:
     return out
 
 
-# -- phase 9: data-parallel training over torch.distributed -----------------
+# -- phase 9: data-parallel training over torch.distributed: FSDP over "data"
 
 def dp_config(smoke: bool, **overrides):
     """granite-moe-3b-a800m at full width, 2 layers (``smoke``: its smoke
@@ -2497,9 +2520,12 @@ def dp_config(smoke: bool, **overrides):
     return served_config(TRAIN_ARCH, num_layers=2, **overrides), TRAIN_SEQ
 
 
-def dp_model(cfg, device):
+def dp_model(cfg, device, mesh=None):
+    """The seed-0 model with wq and wk at their true fan-in (F3): this
+    rank's slices of ``mesh``'s data axis (FSDP) where it spans
+    processes, else the whole."""
     model = tf.init_model(cfg, torch.Generator(device=device).manual_seed(0),
-                          device, trainable=True)
+                          device, trainable=True, mesh=mesh)
     unit_scores(model)
     return model
 
@@ -2512,75 +2538,147 @@ def dp_parity_batch(cfg, seq) -> dict:
 
 
 def dp_f32_step(device, mesh, smoke: bool) -> dict:
-    """One float32 step's loss, gradients and routes of ``dp_parity_batch``
-    (this rank's rows with a mesh over processes; all of it otherwise)."""
+    """One float32 step's loss, gradients (this rank's slices under FSDP)
+    and routes of ``dp_parity_batch`` (this rank's rows with a mesh over
+    processes; all of it otherwise). Under FSDP also whether each
+    gradient slice is bit for bit the slice of the same step's whole
+    gradients summed by ``sum_gradients`` (the whole model, every weight
+    on every rank, on the same rows)."""
     cfg, seq = dp_config(smoke, compute_dtype="float32")
-    model = dp_model(cfg, device)
+    model = dp_model(cfg, device, mesh)
+    batch = dp_parity_batch(cfg, seq)
     log, label = [], [("prefill", 0)]
     with recorded_routes(log, label), steps.deterministic():
-        loss, grads = steps.loss_and_grads(
-            model, dp_parity_batch(cfg, seq), mesh)
+        loss, grads = steps.loss_and_grads(model, batch, mesh)
     out = {"loss": loss.cpu(), "routes": [r.cpu() for _, r in log],
-           "grads": {n: g.cpu() for n, g in grads.items()}}
+           "grads": {n: g.cpu() for n, g in grads.items()},
+           "data_dims": dict(model.data_dims)}
+    if model.data_dims:
+        whole = dp_model(cfg, device)
+        with steps.deterministic():
+            _, ref = steps.loss_and_grads(whole, batch, mesh)
+        out["slices_equal"] = all(torch.equal(g, model.slice_of(n, ref[n]))
+                                  for n, g in grads.items())
+        del whole, ref
     del model, grads
     free_memory()
     return out
 
 
-def ranks_agree(model, group) -> bool:
-    """Every parameter bit for bit the same on every rank of ``group``."""
-    import torch.distributed as dist
-    n = dist.get_world_size(group)
+def ranks_agree(model, group, keep=None) -> bool:
+    """Every parameter, gathered in rank order where it is sliced over
+    the data axis, bit for bit the same on every rank of ``group``; each
+    gathered parameter copied to the CPU into ``keep`` when given (one
+    at a time, so the card never holds the whole model for it)."""
     same = True
-    for p in model.parameters():
-        parts = [torch.empty_like(p) for _ in range(n)]
-        dist.all_gather(parts, p.detach().contiguous(), group=group)
+    for n, p in model.named_parameters():
+        w = p.detach()
+        if n in model.data_dims:
+            w = torch.cat(pops.all_parts(w, group), dim=model.data_dims[n])
+        parts = pops.all_parts(w, group)
         same &= all(torch.equal(parts[0], q) for q in parts[1:])
+        if keep is not None:
+            keep[n] = w.cpu()
+        del w, parts
     return same
 
 
-def dp_steps(device, mesh, n_steps: int, smoke: bool, keep: bool) -> dict:
+def step_gap(got: dict, want: dict) -> dict:
+    """Parameters ``got`` against ``want`` (by name, the same shapes and
+    types): the elements that differ, of how many, the largest
+    difference, and the largest in units in the last place of the
+    parameter's type at ``want``'s value."""
+    differing = total = 0
+    worst = ulps = 0.0
+    for n, b in want.items():
+        a = got[n]
+        d = (a.double() - b.double()).abs()
+        info = torch.finfo(b.dtype)
+        place = info.eps * torch.exp2(torch.floor(torch.log2(
+            b.double().abs().clamp_min(info.tiny))))
+        differing += int((a != b).sum())
+        total += b.numel()
+        worst = max(worst, float(d.max()))
+        ulps = max(ulps, float((d / place).max()))
+        del d, place
+    return {"differing": differing, "elements": total, "max_abs": worst,
+            "max_ulps": ulps}
+
+
+@contextlib.contextmanager
+def timed_collectives(sync):
+    """Host seconds inside the data axis's collectives (FSDP's gathers
+    and reduce-scatters, the loss's and router statistics' sums, the
+    gradient norm's: ``parallel/ops._parts``) and inside
+    ``sum_gradients``, each ending in a synchronise, appended to the
+    yielded list."""
+    spent, parts, summed = [], pops._parts, steps.sum_gradients
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            sync()
+            t = time.perf_counter()
+            res = fn(*args, **kwargs)
+            sync()
+            spent.append(time.perf_counter() - t)
+            return res
+        return call
+
+    pops._parts, steps.sum_gradients = timed(parts), timed(summed)
+    try:
+        yield spent
+    finally:
+        pops._parts, steps.sum_gradients = parts, summed
+
+
+def dp_steps(device, mesh, n_steps: int, smoke: bool, keep: bool,
+             whole: bool = False, first: bool = False) -> dict:
     """``n_steps`` bf16 AdamW steps (``granite_steps``' run, wq and wk at
-    their true fan-in) through ``make_train_step(..., mesh)``: each step's
-    loss, gradient norm, host seconds (ending in a synchronise), the
-    host seconds of its gradient sum, and whether the ranks' parameters
-    agree after it; the parameters after the last step if ``keep``."""
+    their true fan-in) through ``make_train_step(..., mesh)``, the model
+    sliced over the mesh's data axis (FSDP) unless ``whole`` (every
+    weight on every rank, every gradient summed by ``sum_gradients``:
+    the replicated placement): each step's loss, gradient norm, learning
+    rate, host seconds (ending in a synchronise) and host seconds inside
+    the data axis's collectives, whether the ranks' gathered parameters
+    agree after it, and the process's peak memory on the card; the
+    parameters after the last step if ``keep``; the gathered parameters
+    after the first step, on the CPU, if ``first`` (``ranks_agree``'s
+    copies: a mesh over processes only)."""
     from repro_torch.train import data as data_mod
     cfg, seq = dp_config(smoke)
-    model = dp_model(cfg, device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    model = dp_model(cfg, device, None if whole else mesh)
     ostate = opt.init_opt_state(dict(model.named_parameters()))
     pipe = data_mod.TokenPipeline(data_mod.DataConfig(
         vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=seq))
     step = steps.make_train_step(cfg, opt.AdamWConfig(total_steps=n_steps),
                                  mesh)
-    cuda = device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    summed, real = [], steps.sum_gradients
-
-    def timed_sum(*args, **kwargs):
-        sync()
-        t = time.perf_counter()
-        real(*args, **kwargs)
-        sync()
-        summed.append(time.perf_counter() - t)
-
-    out = {"losses": [], "norms": [], "step_s": [], "agree": []}
-    steps.sum_gradients = timed_sum
-    try:
-        with steps.deterministic():
-            for i in range(n_steps):
+    out = {"losses": [], "norms": [], "lrs": [], "step_s": [], "coll_s": [],
+           "agree": []}
+    with steps.deterministic():
+        for i in range(n_steps):
+            with timed_collectives(sync) as spent:
                 sync()
                 t = time.perf_counter()
                 model, ostate, met = step(model, ostate, pipe.batch_at(i))
                 out["losses"].append(met["loss"].cpu())
                 out["norms"].append(met["grad_norm"].cpu())
+                out["lrs"].append(met["lr"].cpu())
                 sync()
                 out["step_s"].append(time.perf_counter() - t)
-                out["agree"].append(mesh is None or mesh.group is None or
-                                    ranks_agree(model, mesh.group))
-    finally:
-        steps.sum_gradients = real
-    out["sum_s"] = summed
+            out["coll_s"].append(sum(spent))
+            kept = {} if first and i == 0 else None
+            out["agree"].append(mesh is None or mesh.group is None or
+                                ranks_agree(model, mesh.group, kept))
+            if kept:
+                out["first"] = kept
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device) \
+        if cuda else None
+    out["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters())
     if keep:
         out["params"] = {n: p.detach().cpu()
                          for n, p in model.named_parameters()}
@@ -2592,10 +2690,16 @@ def dp_steps(device, mesh, n_steps: int, smoke: bool, keep: bool) -> dict:
 def dp_worker(job: dict) -> int:
     """One rank of ``dp_train_phase`` (``chip_smoke.py --dp-worker JOB``):
     torchrun's ``RANK`` and ``WORLD_SIZE`` from the environment, the
-    group joined through the job's store; the float32 step, then the
-    bf16 steps; writes the results to the job's ``out``."""
+    group joined through the job's store; the float32 step, the bf16
+    steps under FSDP, one bf16 step of the whole model on every rank
+    (the parent's placement, for its peak memory and step time, and the
+    parameters after its step that the FSDP ranks' gathered slices after
+    their first step are held to: ``step_gap``), then the dry run's FSDP
+    cut (``dryrun.execute_cell(..., data=world)``); writes the results
+    to the job's ``out``."""
     import torch.distributed as dist
     from datetime import timedelta
+    from repro_torch.launch import dryrun
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     if job["device"] == "cuda":
         device = torch.device(f"cuda:{rank}" if job["backend"] == "nccl"
@@ -2608,12 +2712,24 @@ def dp_worker(job: dict) -> int:
                             timeout=timedelta(seconds=DP_TIMEOUT))
     try:
         mesh = make_local_mesh(device)
+        smoke = job["smoke"]
         out = {"device": str(device)}
-        out["f32"] = dp_f32_step(device, mesh, job["smoke"])
-        if rank:
-            del out["f32"]["grads"]
-        out["bf16"] = dp_steps(device, mesh, job["steps"], job["smoke"],
-                               keep=False)
+        out["f32"] = dp_f32_step(device, mesh, smoke)
+        out["bf16"] = dp_steps(device, mesh, job["steps"], smoke, keep=False,
+                               first=True)
+        out["whole"] = dp_steps(device, mesh, 1, smoke, keep=False,
+                                whole=True, first=True)
+        out["step_one"] = step_gap(out["bf16"].pop("first"),
+                                   out["whole"].pop("first"))
+        arch, shape, n_layers, batch = DP_DRYRUN
+        cut = dryrun.execute_cell(
+            arch, shape, device, layers=n_layers, batch=batch, data=world,
+            **({"cfg": dp_config(True)[0], "seq": 64} if smoke else {}))
+        out["dryrun"] = {k: cut[k] for k in (
+            "reduced", "data", "data_rank", "model", "model_rank",
+            "count_equal", "count_diff", "collectives", "flops", "bytes",
+            "meta_flops", "meta_bytes", "measured_s", "step_s",
+            "compute_s", "memory_s", "roofline_share", "kernels")}
         torch.save(out, job["out"].format(rank=rank))
     finally:
         dist.destroy_process_group()
@@ -2655,20 +2771,45 @@ def spawn_ranks(tmp: str, world: int, job: dict,
             for r in range(world)]
 
 
+def dp_joined(ranks, name: str) -> torch.Tensor:
+    """The ranks' float32 gradient slices of ``name`` joined in rank
+    order on its sliced dim (the first rank's where it is whole)."""
+    d = ranks[0]["f32"]["data_dims"].get(name)
+    if d is None:
+        return ranks[0]["f32"]["grads"][name]
+    return torch.cat([r["f32"]["grads"][name] for r in ranks], dim=d)
+
+
 def dp_train_phase(device, smoke: bool = False) -> dict:
-    """Data-parallel training over ``torch.distributed``: ``DP_RANKS``
-    ranks on 2 full-width granite-moe-3b-a800m layers, wq and wk at their
-    true fan-in, each with 2 x 1024 tokens of the global 4 x 1024; NCCL
-    over that many cards where there are as many, else gloo with every
-    rank on the one card (NCCL refuses two ranks on one GPU).
+    """Data-parallel training over ``torch.distributed``, FSDP over "data"
+    (each rank holds its slices of every weight with an "embed" dim and
+    of AdamW's m and v, gathers a block's weights where it runs and
+    reduce-scatters their gradients in a fixed order): ``DP_RANKS`` ranks
+    on 2 full-width granite-moe-3b-a800m layers, wq and wk at their true
+    fan-in, each with 2 x 1024 tokens of the global 4 x 1024; NCCL over
+    that many cards where there are as many, else gloo with every rank on
+    the one card (NCCL refuses two ranks on one GPU).
     (a) One float32 step against one process on the global batch under
     ``use_mesh`` with ``data_group_count() == 2``, on the kernel path:
-    the loss within 1e-4, every gradient within ``TRAIN_GRAD_TOL`` of
-    its largest entry, at most ``ROUTE_LIMIT`` of the top-8 routes
-    differing (F3's limits). (b) ``DP_STEPS`` bf16 AdamW steps: finite
-    losses, every rank's parameters bit for bit equal after every step.
-    (c) One rank (this process, a group of one) through the distributed
-    path: the plain trainer's ``DP_STEPS`` steps bit for bit."""
+    the loss within 1e-4, every gradient (the ranks' slices joined)
+    within ``TRAIN_GRAD_TOL`` of its largest entry, at most
+    ``ROUTE_LIMIT`` of the top-8 routes differing (F3's limits).
+    (a') Each rank's gradient slices bit for bit the slices of the same
+    step's whole gradients summed by ``sum_gradients``.
+    (b) ``DP_STEPS`` bf16 AdamW steps: finite losses, the parameters
+    gathered in rank order bit for bit equal on every rank after every
+    step, the loss, gradient norm and learning rate bit for bit equal on
+    every rank; after the first step the gathered parameters against
+    those of one step of the whole model on every rank (the replicated
+    placement) on the same rows: bit for bit where neither step clips
+    (the gradients are ``sum_gradients``' bits), else within one unit in
+    the last place (the norm's float32 order differs, and with it the
+    clipping scale); each rank's peak memory, the step's ms and the ms
+    inside the data axis's collectives, beside that step of the whole
+    model's. (c) One rank (this process, a
+    group of one) through the distributed path: the plain trainer's
+    ``DP_STEPS`` steps bit for bit. Returns the ranks' FSDP dry-run cuts
+    (``DP_DRYRUN``) for ``dryrun_phase``."""
     from repro_torch.launch.mesh import Mesh
     cuda = device.type == "cuda"
     cards = torch.cuda.device_count() if cuda else 0
@@ -2699,8 +2840,12 @@ def dp_train_phase(device, smoke: bool = False) -> dict:
     got = ranks[0]["f32"]
     check(all(torch.equal(r["f32"]["loss"], got["loss"]) for r in ranks),
           "the ranks' losses differ")
+    check(got["data_dims"] and all(r["f32"]["data_dims"] == got["data_dims"]
+                                   for r in ranks),
+          "the ranks hold no slices, or different ones")
     dloss = abs(float(got["loss"]) - float(want["loss"]))
-    errs = {n: _rel_err(g, want["grads"][n]) for n, g in got["grads"].items()}
+    errs = {n: _rel_err(dp_joined(ranks, n), g)
+            for n, g in want["grads"].items()}
     worst = max(errs, key=errs.get)
     check(len(want["routes"]) == len(got["routes"]), "routing calls differ")
     diff = total = 0
@@ -2709,6 +2854,7 @@ def dp_train_phase(device, smoke: bool = False) -> dict:
         diff += int((w.sort(dim=-1).values != g.sort(dim=-1).values)
                     .any(dim=-1).sum())
         total += w.shape[0]
+    slices = [r["f32"]["slices_equal"] for r in ranks]
     # (c) one rank against the plain trainer
     plain = dp_steps(device, None, DP_STEPS, smoke, keep=True)
     same_one = (torch.equal(torch.stack(mine["losses"]),
@@ -2718,44 +2864,92 @@ def dp_train_phase(device, smoke: bool = False) -> dict:
                 all(torch.equal(mine["params"][n], p)
                     for n, p in plain["params"].items()))
     bf16 = [r["bf16"] for r in ranks]
+    whole = [r["whole"] for r in ranks]
+    scalars = all(torch.equal(torch.stack(b[k]), torch.stack(bf16[0][k]))
+                  for b in bf16[1:] for k in ("losses", "norms", "lrs"))
     losses = [float(x) for x in bf16[0]["losses"]]
+    gb = [None if b["peak_bytes"] is None else b["peak_bytes"] / 1e9
+          for b in bf16]
+    gb_whole = [None if w["peak_bytes"] is None else w["peak_bytes"] / 1e9
+                for w in whole]
+    # (b) after the first step, the FSDP ranks' gathered parameters
+    # against the whole model's: the gradients are sum_gradients' bits,
+    # so only the norm's float32 order differs, and it moves the update
+    # only where the step clips
+    clip = opt.AdamWConfig().clip_norm
+    norm_one = [float(bf16[0]["norms"][0]), float(whole[0]["norms"][0])]
+    clipped = max(norm_one) > clip
+    gaps = [r["step_one"] for r in ranks]
+    gap = max(gaps, key=lambda g: g["max_ulps"])
     out = {"backend": backend, "devices": [r["device"] for r in ranks],
            "ranks": DP_RANKS, "loss": float(got["loss"]),
            "loss_global": float(want["loss"]), "dloss": dloss,
            "max_rel_grad_err": errs[worst], "worst_grad": worst,
            "routes_compared": total, "routes_differing": diff,
-           "bf16_losses": losses, "bf16_agree": [r["agree"] for r in bf16],
-           "bf16_step_s": bf16[0]["step_s"], "bf16_sum_s": bf16[0]["sum_s"],
+           "slices_bit_for_bit": slices,
+           "bf16_losses": losses, "bf16_agree": [b["agree"] for b in bf16],
+           "scalars_equal": scalars, "step_one_gap": gaps,
+           "step_one_norms": norm_one, "step_one_clipped": clipped,
+           "bf16_step_s": bf16[0]["step_s"], "bf16_coll_s": bf16[0]["coll_s"],
+           "peak_gb": gb, "param_gb": [b["param_bytes"] / 1e9 for b in bf16],
+           "whole_step_s": whole[0]["step_s"],
+           "whole_coll_s": whole[0]["coll_s"], "whole_peak_gb": gb_whole,
+           "whole_param_gb": [w["param_bytes"] / 1e9 for w in whole],
            "plain_step_s": plain["step_s"], "one_rank_step_s": mine["step_s"],
            "one_rank_bit_for_bit": same_one,
            "wall_two_ranks_s": t_two, "wall_one_rank_s": t_one}
-    print(f"data-parallel {TRAIN_ARCH} (2 of 32 layers at full width, wq "
+
+    def ms(xs):
+        return " ".join(f"{1e3 * x:.1f}" for x in xs)
+
+    if cuda:
+        print(card_line())
+    print(f"FSDP over data, {TRAIN_ARCH} (2 of 32 layers at full width, wq "
           f"and wk at their true fan-in), {DP_RANKS} ranks over {backend} on "
           f"{out['devices']}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens split "
           f"{TRAIN_BATCH // DP_RANKS} rows a rank: (a) float32 step: loss "
           f"{out['loss']:.6f} vs one process on the global batch with 2 MoE "
           f"groups {out['loss_global']:.6f}; worst gradient {worst} rel err "
           f"{errs[worst]:.3e} over {len(errs)} tensors; top-k sets differing "
-          f"{diff} of {total}; (b) bf16 AdamW losses " +
-          " ".join(f"{x:.4f}" for x in losses) + f"; ranks' parameters "
-          f"equal after every step {out['bf16_agree']}; step ms " +
-          " ".join(f"{1e3 * x:.1f}" for x in out["bf16_step_s"]) +
-          "; gradient sum (all-gather + rank-order sum) ms " +
-          " ".join(f"{1e3 * x:.1f}" for x in out["bf16_sum_s"]) +
-          f" (one process, no sum: step ms " +
-          " ".join(f"{1e3 * x:.1f}" for x in plain["step_s"]) +
-          f"); (c) one rank through the distributed path equals the plain "
-          f"trainer's {DP_STEPS} steps bit for bit: {same_one} (one-rank "
-          f"step ms " + " ".join(f"{1e3 * x:.1f}" for x in mine["step_s"]) +
-          f"); the spawned ranks {t_two:.1f} s, the one rank {t_one:.1f} s")
+          f"{diff} of {total}; (a') gradient slices bit for bit "
+          f"sum_gradients' slices {slices}; (b) bf16 AdamW losses " +
+          " ".join(f"{x:.4f}" for x in losses) + f"; gathered parameters "
+          f"equal on the ranks after every step {out['bf16_agree']}, loss, "
+          f"norm and lr equal {scalars}; after step 1 against the whole "
+          f"model's step: {gap['differing']} of {gap['elements']} elements "
+          f"differ, largest {gap['max_abs']:.3e} ({gap['max_ulps']:.3g} "
+          f"ulp), grad norm {norm_one[0]!r} vs {norm_one[1]!r} (clipped: "
+          f"{clipped}); step ms {ms(out['bf16_step_s'])}, "
+          f"of which inside the data axis's collectives "
+          f"{ms(out['bf16_coll_s'])}; peak memory a rank GB "
+          f"{[round(x, 3) for x in gb if x is not None]} (parameters "
+          f"{[round(x, 3) for x in out['param_gb']]}); the whole model on "
+          f"every rank (the replicated placement): step ms "
+          f"{ms(out['whole_step_s'])}, of which the gradient sum and "
+          f"collectives {ms(out['whole_coll_s'])}, peak GB "
+          f"{[round(x, 3) for x in gb_whole if x is not None]} (parameters "
+          f"{[round(x, 3) for x in out['whole_param_gb']]}); one process, "
+          f"no collective: step ms {ms(plain['step_s'])}; (c) one rank "
+          f"through the distributed path equals the plain trainer's "
+          f"{DP_STEPS} steps bit for bit: {same_one} (one-rank step ms "
+          f"{ms(mine['step_s'])}); the spawned ranks {t_two:.1f} s, the one "
+          f"rank {t_one:.1f} s")
     check(dloss <= 1e-4, f"data-parallel loss differs by {dloss}")
     check(errs[worst] <= TRAIN_GRAD_TOL, f"gradient {worst}: {errs[worst]}")
     check(diff <= ROUTE_LIMIT * total, f"{diff} of {total} routes differ")
+    check(all(slices), f"a rank's gradient slices differ from "
+          f"sum_gradients' slices: {slices}")
     check(all(map(math.isfinite, losses)), f"losses {losses}")
-    check(all(all(r["agree"]) for r in bf16),
-          f"the ranks' parameters differ: {out['bf16_agree']}")
+    check(all(all(b["agree"]) for b in bf16),
+          f"the ranks' gathered parameters differ: {out['bf16_agree']}")
+    check(scalars, "the ranks' losses, norms or learning rates differ")
+    check(all(g["max_ulps"] <= 1 if clipped else g["differing"] == 0
+              for g in gaps),
+          f"after step 1 the FSDP parameters differ from the whole model's "
+          f"(clipped: {clipped}): {gaps}")
     check(same_one, "one rank through the distributed path differs from "
           "the plain trainer")
+    out["dryrun"] = [r["dryrun"] for r in ranks]
     free_memory()
     return out
 
@@ -2769,7 +2963,8 @@ TP_PARITY = ((LM_ARCH, 2), (MOE_ARCH, 2), (HYBRID_ARCH, 8))  # arch, layers
 TP_ROWS, TP_PROMPT, TP_CACHE, TP_TICKS = 2, 256, 512, 4
 TP_STEP = (2, 512)             # granite's float32 step: rows x tokens
 # h2o-danube-1.8b whole in bf16: prompts, tokens each, ring rows, ticks
-TP_SERVE = (16, 512, 1024, 64)
+# (32 ticks: 64 took ~16 s of the smoke's time limit)
+TP_SERVE = (16, 512, 1024, 32)
 # the dry run's model-axis cut: arch, shape, layers, batch
 TP_DRYRUN = (LM_ARCH, "decode_32k", 2, 8)
 
@@ -2851,7 +3046,7 @@ def tp_step_run(device, mesh, smoke: bool = False) -> dict:
     with recorded_routes(log, label), steps.deterministic():
         loss, grads = steps.loss_and_grads(model, batch, mesh)
     out = {"loss": loss.cpu(), "grads": {n: g.cpu() for n, g in grads.items()},
-           "routes": [r.cpu() for _, r in log], "split": model.model_split()}
+           "routes": [r.cpu() for _, r in log], "split": model.split_axes()}
     del model, grads
     free_memory()
     return out
@@ -3035,7 +3230,7 @@ def model_axis_phase(device, smoke: bool = False) -> dict:
     errs, same = {}, True
     for name, g in want["grads"].items():
         parts = [r["grads"][name] for r in got]
-        if not got[0]["split"][name]:
+        if "model" not in got[0]["split"][name]:
             same &= all(torch.equal(parts[0], q) for q in parts[1:])
         errs[name] = _rel_err(tp_joined(parts, g.shape), g)
     worst = max(errs, key=errs.get)
@@ -3109,7 +3304,7 @@ DRYRUN_KINDS = (("granite-moe-3b-a800m", "train_4k"),
                 ("jamba-v0.1-52b", "long_500k"))
 
 
-def dryrun_phase(device, model_axis=()) -> dict:
+def dryrun_phase(device, model_axis=(), data_axis=()) -> dict:
     """The dry run (``repro_torch.launch.dryrun``): one cell of each kind
     counted on ``meta`` on the ``card``, ``node`` and ``pod`` meshes (the
     pod's one device of the 16-way model axis) and one on ``multipod``,
@@ -3120,8 +3315,9 @@ def dryrun_phase(device, model_axis=()) -> dict:
     cut, and whose roofline share (max(compute_s, memory_s) over the
     measured median step) must not exceed 1: a share above 1 is a count
     that is too large. ``model_axis``: each rank's result of the
-    model-axis cut (``model_axis_phase``), whose count, collectives
-    included, must equal its ``meta`` count too."""
+    model-axis cut (``model_axis_phase``), and ``data_axis``: of the FSDP
+    cut over 2 data ranks (``dp_train_phase``), whose counts,
+    collectives included, must equal their ``meta`` counts too."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     grid = {}
@@ -3159,9 +3355,11 @@ def dryrun_phase(device, model_axis=()) -> dict:
                 n_placed += 1
     print(f"dryrun JAX placements: {n_placed} pod and multipod cells in "
           f"{time.perf_counter() - t_placed:.2f} s")
-    for r in model_axis:
+    for r in list(model_axis) + list(data_axis):
         print(f"dryrun executed {r['reduced']} on model rank "
-              f"{r['model_rank']} of {r['model']} (gloo ranks on one card): "
+              f"{r['model_rank']} of {r['model']}, data rank "
+              f"{r.get('data_rank', 0)} of {r.get('data', 1)} (gloo ranks on "
+              f"one card): "
               f"count equal {r['count_equal']} ({r['flops']} FLOPs, "
               f"{r['bytes']} bytes, collectives {r['collectives']}; meta "
               f"{r['meta_flops']}, {r['meta_bytes']}); median "
@@ -3169,9 +3367,9 @@ def dryrun_phase(device, model_axis=()) -> dict:
               f"{[round(t * 1e3, 3) for t in r['step_s']]}; roofline share "
               f"{r['roofline_share']:.4f}; kernels "
               f"{ {k: v['calls'] for k, v in r['kernels'].items()} }")
-        check(r["count_equal"], f"dryrun model-axis cut, rank "
-              f"{r['model_rank']}: the count differs from meta's: "
-              f"{r['count_diff']}")
+        check(r["count_equal"], f"dryrun cut {r['reduced']}, model rank "
+              f"{r['model_rank']}, data rank {r.get('data_rank', 0)}: the "
+              f"count differs from meta's: {r['count_diff']}")
     executed = {}
     for arch, shape, n_layers, batch in DRYRUN_EXECUTED:
         r = dryrun.execute_cell(arch, shape, device, layers=n_layers,
@@ -3195,6 +3393,7 @@ def dryrun_phase(device, model_axis=()) -> dict:
         free_memory()
     out = {"grid_count_s": grid, "placements": n_placed,
            "model_axis_count_equal": [r["count_equal"] for r in model_axis],
+           "data_axis_count_equal": [r["count_equal"] for r in data_axis],
            "executed": {k: {f: v[f] for f in (
                "reduced", "count_equal", "flops", "bytes", "measured_s",
                "compute_s", "memory_s", "roofline_share", "mfu")}
@@ -3277,11 +3476,20 @@ def main() -> int:
               file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        """The script's wall so far, after ``what`` (for cutting it to
+        its time limit)."""
+        print(f"chip_smoke: {what} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     build_phase()
+    mark("build")
     # a training step's bits, before every other phase (compared with the
     # same step after them, below)
     early_bits = step_bits_phase(device)
@@ -3289,6 +3497,7 @@ def main() -> int:
     head_row = head_phase(device)
     grouped = grouped_kernel_phase(device)
     operator_phase(device)
+    mark("query kernels")
     query = main_path(device)
     print("main path: " + json.dumps(query))
     # the same query again under the profiler, for the card's busy time
@@ -3303,11 +3512,13 @@ def main() -> int:
            f"{traced['wall_query_s']:.2f} s wall)" if busy
            else "not measured") +
           f"; the rerun repeats the simulated results: {same}")
+    mark("query")
     # the multi-query main path: 8 queries over 3 cameras, standalone and
     # through the FleetScheduler (untraced, traced)
     fleet = fleet_phase(device)
     print("fleet: " + json.dumps(fleet))
     print("mesh probe: " + json.dumps(mesh_probe_phase(device)))
+    mark("fleet")
     # the LM zoo's path: its kernels at the served shapes, the whole
     # model against its plain path, then the model served, untraced and
     # once more under the profiler; h2o-danube-1.8b, then
@@ -3323,6 +3534,7 @@ def main() -> int:
                                    MOE_FLASH_SHAPES))
     parity_phase(device)
     moe_serve = serve_lm(device, MOE_ARCH)
+    mark("h2o and granite")
     # the recurrent models: jamba-v0.1-52b (one period at full width: 7
     # Mamba layers, 1 attention, 4 MoE) and xlstm-125m (mLSTM and sLSTM,
     # whole): their kernel shapes, float32 parity, the bf16 serve
@@ -3337,6 +3549,7 @@ def main() -> int:
     parity_phase(device, XLSTM_ARCH)
     serve_lm(device, XLSTM_ARCH)
     scan_phase(device)
+    mark("jamba and xlstm")
     # the frontends' prefills with their prefix embeddings: llava-next-34b
     # (1024 image patches), musicgen-large (500 audio frames) after its
     # kernels at its shapes
@@ -3357,6 +3570,7 @@ def main() -> int:
     # layers on the kernel path against the plain path, the published
     # config for TRAIN_STEPS steps through launch.train (the last traced),
     # and xlstm-125m's resume
+    mark("prefixes and head shapes")
     bwd_rows = bwd_kernel_phase(device)
     same_step_bits(early_bits, step_bits_phase(device))
     del early_bits
@@ -3364,17 +3578,24 @@ def main() -> int:
     train_parity_phase(device)
     training = train_phase(device)
     resume_phase(device)
-    # data-parallel training: 2 ranks against one process on the global
-    # batch, the ranks' bits equal, one rank the plain trainer's bits
-    print("data parallel: " + json.dumps(dp_train_phase(device)))
+    mark("training")
+    # data-parallel training, FSDP over "data": 2 ranks against one
+    # process on the global batch, the gradient slices sum_gradients'
+    # bits, the ranks' gathered bits equal, one rank the plain trainer's
+    dp = dp_train_phase(device)
+    print("data parallel: " + json.dumps({k: v for k, v in dp.items()
+                                          if k != "dryrun"}))
+    mark("FSDP")
     # the model axis: 2 gloo ranks on the card against one process
     # (float32 parity, granite's step), h2o whole in bf16, and the dry
     # run's model-axis cut
     axis = model_axis_phase(device)
+    mark("model axis")
     # the dry run: meta counts of the grid, and three cells executed on
     # the card, each count equal to its meta count at the same cut, and
-    # the model-axis cut's ranks
-    dryrun_phase(device, axis["dryrun"])
+    # the model-axis and FSDP cuts' ranks
+    dryrun_phase(device, axis["dryrun"], dp["dryrun"])
+    mark("dry run")
     # the kernel's line: one 1024-frame chunk of the full-width operator,
     # its five conv layers (the main path's largest dispatch); the bound
     # is the larger of their summed bytes and summed operations' times

@@ -12,33 +12,45 @@ under the op count of ``launch/op_analysis.py``. Nothing is computed or
 allocated, so a 400B-parameter model's training step is counted on a
 laptop.
 
-Meshes (``launch/mesh.make_dryrun_mesh``):
+Meshes (``launch/mesh.make_dryrun_mesh``), each counted from one
+device's step, run on ``meta`` at the device's batch (the global batch
+over the pod and data axes; a batch that does not divide replicates):
+train = ``train_loss`` forward and backward with per-block remat, then
+AdamW's ``apply_updates``; prefill = ``transformer.prefill``; decode =
+``transformer.decode_step``. The device's model is built for data rank
+0 and model rank 0 of the mesh (``device_view``), placed as the port
+places it, which is the JAX placement (``models/transformer.placement``
+under ``parallel/sharding.default_rules``): every weight's "embed" dim
+sliced over "data" (FSDP, each block's weights gathered where the block
+runs, again in a rematerialised block's backward, the gradients
+reduce-scattered), and vocab, heads, kv heads where they divide, ffn,
+experts and Mamba's d_inner split over "model", the decode caches split
+by sequence over "model".
 
-* ``card`` and ``node`` (``{data: 8}``) are the placements the port
-  executes: one card, or eight data-parallel ranks with the parameters
-  replicated and the batch split (a batch that does not divide
-  replicates). Each is counted from its step, run on ``meta`` at the
-  batch of one device: train = ``train_loss`` forward and backward with
-  per-block remat, then AdamW's ``apply_updates``; prefill =
-  ``transformer.prefill``; decode = ``transformer.decode_step``. The
-  node's collectives come from the port's own plan
-  (``op_analysis.collective_plan``).
-* ``pod`` (16 x 16) and ``multipod`` (2 x 16 x 16) run the port's
-  "model" axis: one device's step is counted on ``meta`` at the
-  device's batch (the global batch over the pod and data axes; a batch
-  that does not divide replicates), with the model built for rank 0 of
-  the 16-way model axis (vocab, heads, kv heads where they divide, ffn,
-  experts and Mamba's d_inner split; ``models/transformer.placement``)
-  and its decode caches split by sequence over "model". The model
-  axis's collectives are the ones the step calls, counted as they run
-  (``parallel/ops.py``; nothing is sent on ``meta``); the data axis's
-  come from the port's plan (the gradient buckets summed over the
-  data ranks). ``memory`` is the port's placement: split over "model",
-  replicated over "data"; ``jax_memory`` keeps the JAX package's
-  (FSDP over "data" too, ``parallel/sharding.param_shardings`` and
-  ``cache_shardings``), with its fallbacks. The port's caches of a
-  batch of 1 are split over "model" only, where the JAX placement
-  spreads them over ("data", "model").
+* ``card``: one card, nothing split.
+* ``node`` (``{data: 8}``): eight ranks, FSDP over "data".
+* ``pod`` (16 x 16) and ``multipod`` (2 x 16 x 16): FSDP over the
+  16-way "data" axis and the 16-way "model" axis (the pod axis
+  replicates).
+
+The collectives the step calls (the data axis's gathers and
+reduce-scatters, the loss's and the router statistics' sums, the model
+axis's) are counted as they run (``parallel/ops.py``; nothing is sent
+on ``meta``); the gradient sums that follow the backward come from the
+port's plan (``op_analysis.collective_plan``: ``sum_gradients``' buckets
+for the weights whole on every data rank, and over the pod axis the
+sliced ones'). ``memory`` is the port's placement, ``jax_memory`` the
+JAX package's (``parallel/sharding.param_shardings`` and
+``cache_shardings``), with its fallbacks; ``jax_differences`` names
+what makes them differ in a cell: the port at a model axis of 1
+(``node``) keeps only the real query heads and experts, which the JAX
+tree pads to its 16-way axes, and its router only the real experts
+everywhere; it holds norm scales in float32 and a served model's
+weights in the compute type; it would replicate the kv heads over
+"model" where its query heads are padded (``attention.kv_split``);
+its caches of a batch of 1 are split over "model" only, where the JAX
+placement spreads them over ("data", "model"), and Mamba's conv state
+is split by d_inner, which the JAX cache rule leaves whole.
 
 The MoE dispatch allocates static capacity rows, whose shapes follow
 from the token count, so the counted expert work is the capacity's, not
@@ -51,10 +63,10 @@ has it.
 at a stated cut of depth and batch, under the same count, and holds its
 count to the ``meta`` count of the same cut (equal integers), then
 times the step with CUDA events and reads the time against the
-roofline terms. With ``model=m`` it is one rank of a model axis of m
-processes (the caller's ``torch.distributed`` group, e.g. gloo ranks on
-one card), whose count, collectives included, must equal the ``meta``
-count of one device of that axis.
+roofline terms. With ``model=m`` and ``data=n`` it is one rank of a mesh of
+n x m processes (the caller's ``torch.distributed`` group, e.g. gloo
+ranks on one card), whose count, collectives included, must equal the
+``meta`` count of one device of that mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh all
 
@@ -79,7 +91,7 @@ from repro_torch.launch import op_analysis
 from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import (DRYRUN_MESHES, Mesh, make_dryrun_mesh,
                                      make_local_mesh)
-from repro_torch.models import transformer
+from repro_torch.models import attention, moe, transformer
 from repro_torch.parallel import sharding
 from repro_torch.train import optimizer as opt
 from repro_torch.train import train_step as steps
@@ -97,11 +109,12 @@ NOTES = (
     "MoE expert work follows the dispatch's static capacity rows, not "
     "routed rows (on meta no token is routed)",
     "decode attention is counted over a full ring (every cache row valid)",
-    "data-axis collectives come from the port's plan "
-    "(train_step.gradient_buckets, parallel/ops.gather_sum); "
-    "sum_gradients' local copies and adds are not counted; model-axis "
-    "collectives (pod, multipod) are counted as the step calls them, an "
-    "all-gather's bytes being its output's",
+    "the collectives the step calls (FSDP's weight gathers and gradient "
+    "reduce-scatters, the loss's and router statistics' sums, the model "
+    "axis's) are counted as they run, an all-gather's bytes being its "
+    "output's; the gradient sums after the backward come from the port's "
+    "plan (train_step.gradient_buckets), whose local copies and adds are "
+    "not counted",
     "memory counts weights, gradients, AdamW moments and caches, not "
     "activations")
 
@@ -170,7 +183,8 @@ def build_step(cfg, cell, device: torch.device, batch: int, mesh=None):
     caches, the decode's logits and caches). Weights and inputs are
     drawn from seed 0 (none on ``meta``); the count does not depend on
     them. ``mesh``: the step of one rank of its model axis (its slice of
-    the model and caches, under the mesh); its batch is the rank's."""
+    the model and caches, under the mesh); ``batch`` is the rows of
+    the mesh's data ranks together (each takes its own)."""
     gen = None if device.type == "meta" else \
         torch.Generator(device=device).manual_seed(0)
     model = transformer.init_model(cfg, gen, device,
@@ -241,17 +255,20 @@ def _memory(model, out, train: bool) -> dict:
 
 
 def device_view(mesh: Mesh) -> Mesh:
-    """The mesh one device of ``mesh`` sees in the dry run: its own
-    rows (data axes of 1) and the whole model axis, with no group."""
-    return Mesh((), ("data", "model"),
-                {"data": 1, "model": int(mesh.shape.get("model", 1))})
+    """The mesh one device of ``mesh`` sees in the dry run: its batch
+    axes, the data axis it is sliced over and the model axis, with no
+    devices and no group, at data rank 0 and model rank 0."""
+    names = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return Mesh((), names + ("model",),
+                {**{a: int(mesh.shape[a]) for a in names},
+                 "model": int(mesh.shape.get("model", 1))})
 
 
 def _executed_cell(cfg, cell, mesh_name: str) -> dict:
-    """One device's step, counted on ``meta`` at its rows: a "model"
-    axis's collectives as the step calls them, the data axes' from the
-    port's plan. Under a model axis, the JAX placement's memory beside
-    the port's."""
+    """One device's step, counted on ``meta`` at its rows: the
+    collectives the step calls as they run, the gradient sums after it
+    from the port's plan. On a mesh of more than one device, the JAX
+    placement's memory beside the port's."""
     mesh = make_dryrun_mesh(mesh_name)
     ranks = mesh.processes                     # the batch axes' devices
     B = cell.global_batch
@@ -259,7 +276,8 @@ def _executed_cell(cfg, cell, mesh_name: str) -> dict:
     counter, out, model = count_step(cfg, cell, per_device, "meta",
                                      device_view(mesh))
     train = cell.kind == "train"
-    coll = op_analysis.collective_plan(model, ranks, train)
+    coll = op_analysis.collective_plan(model, ranks, train,
+                                       mesh.data_slices)
     for kind, row in counter.collectives.items():
         coll[kind]["count"] += row["count"]
         coll[kind]["bytes"] += row["bytes"]
@@ -277,18 +295,64 @@ def _executed_cell(cfg, cell, mesh_name: str) -> dict:
                                  coll["total_bytes"]) |
             {"model_flops_global": mf,
              "useful_flops_ratio": mf / max(counter.flops * mesh.size, 1)}}
-    if "model" in mesh.shape:
+    if mesh.size > 1:
         jax_side = jax_placement(cfg, cell, mesh_name)
         body |= {"sharding_fallbacks": model.sharding_fallbacks(),
                  "jax_memory": jax_side["memory"],
-                 "jax_sharding_fallbacks": jax_side["sharding_fallbacks"]}
+                 "jax_sharding_fallbacks": jax_side["sharding_fallbacks"],
+                 "jax_differences": jax_differences(cfg, cell, mesh_name)}
     return body
+
+
+def jax_differences(cfg, cell, mesh_name: str) -> Dict[str, list]:
+    """Why a cell's ``memory`` differs from its ``jax_memory``, by field:
+    ``weights`` (params, grads and AdamW bytes) and ``cache``; an empty
+    list where the port's placement is the JAX one and the bytes are
+    equal."""
+    mesh = device_view(make_dryrun_mesh(mesh_name))
+    m = mesh.shape["model"]
+    mixers = {spec.mixer for spec in cfg.pattern}
+    H, KV, E = cfg.num_heads, cfg.num_kv_heads, cfg.num_experts
+    attends = bool(mixers & {"attn", "attn_window"})
+    weights, cache = [], []
+    if m == 1 and attends and attention.padded_heads(H) != H:
+        weights.append(f"query heads: the JAX tree pads {H} to "
+                       f"{attention.padded_heads(H)}, the port at a model "
+                       "axis of 1 holds the real ones")
+    if E and moe.padded_experts(E) != E:
+        weights.append(f"experts: the JAX tree pads {E} to "
+                       f"{moe.padded_experts(E)}, the port's router holds "
+                       "the real ones" + (" and so do its experts at a "
+                                          "model axis of 1" if m == 1 else ""))
+    if cfg.param_dtype != "float32":
+        weights.append("norm scales: float32 in the port, the parameter "
+                       f"type ({cfg.param_dtype}) in the JAX tree")
+    if cell.kind != "train" and cfg.compute_dtype != cfg.param_dtype:
+        weights.append("served weights: cast once to the compute type "
+                       f"({cfg.compute_dtype}) in the port, the parameter "
+                       f"type ({cfg.param_dtype}) in the JAX tree")
+    if m > 1 and attends and KV % m == 0 and \
+            not attention.kv_split(H, KV, m):
+        weights.append("kv heads: replicated over \"model\" where the "
+                       "query heads are padded (attention.kv_split), split "
+                       "in the JAX placement")
+    if cell.kind != "train":
+        if cell.global_batch == 1 and mesh.size > 1 and attends:
+            cache.append("a batch of 1: the JAX placement spreads the "
+                         "attention cache's sequence over (\"data\", "
+                         "\"model\"), the port holds it on every data "
+                         "rank, split over \"model\" only")
+        if m > 1 and "mamba" in mixers:
+            cache.append("Mamba's conv state: split by d_inner over "
+                         "\"model\" in the port, whole in the JAX "
+                         "cache_shardings")
+    return {"weights": weights, "cache": cache}
 
 
 def jax_placement(cfg, cell, mesh_name: str) -> dict:
     """The JAX placement's per-device bytes (FSDP over "data" and the
     model axis)."""
-    mesh = make_dryrun_mesh(mesh_name)
+    mesh = device_view(make_dryrun_mesh(mesh_name))
     specs = transformer.param_specs(cfg)
     fallbacks = []
     pspecs = sharding.param_shardings(specs, mesh,
@@ -388,15 +452,15 @@ def time_step(run, device: torch.device) -> list:
 
 def execute_cell(arch: str, shape_name: str, device: Device = None, *,
                  layers: Optional[int] = None, batch: Optional[int] = None,
-                 seq: Optional[int] = None, cfg=None, model: int = 1) -> dict:
+                 seq: Optional[int] = None, cfg=None, model: int = 1,
+                 data: int = 1) -> dict:
     """Run ``arch``'s ``shape_name`` step for real on ``device`` (the card
     unless the caller asks for the CPU), cut to ``layers`` layers and
     ``batch`` rows, under the op count; hold its count to the ``meta``
     count of the same cut (``count_equal``: FLOPs, bytes, FLOPs by
     class, every kernel's calls, FLOPs and bytes, and every aten op's
     calls, all equal); then time ``ITERS`` steps after ``WARMUP``
-    (separate, uncounted runs) and
-    read the median against the roofline terms: ``roofline_share`` =
+    (separate, uncounted runs) and read the median against the roofline terms: ``roofline_share`` =
     max(compute_s, memory_s) / measured, ``mfu`` = model FLOPs /
     (measured x the bf16 peak). No fallback: a kernel that does not
     build or launch fails the cell.
@@ -407,12 +471,14 @@ def execute_cell(arch: str, shape_name: str, device: Device = None, *,
     model's eager scan is counted and run in seconds. Each cut is listed
     in ``reduced``.
 
-    ``model``: run as one rank of a "model" axis over every process of
-    the caller's ``torch.distributed`` group (``make_local_mesh(device,
-    model=model)``, which must be the whole world: the data axis is 1),
-    each rank calling this; its count, the model axis's collectives
-    included, is held to the ``meta`` count of one device of that axis
-    (``device_view``), as integers.
+    ``model`` and ``data``: run as one rank of a mesh of ``data`` x
+    ``model`` processes, every process of the caller's
+    ``torch.distributed`` group (``make_local_mesh(device,
+    model=model)``), each rank calling this; ``batch`` is the data ranks'
+    rows together, each rank taking its own. Its count, the collectives
+    included (the model axis's, FSDP's gathers and reduce-scatters over
+    "data"), is held to the ``meta`` count of one device of that mesh
+    (``device_view``, at one rank's rows), as integers.
 
     On the CPU a training step's count is not the card's: the
     optimizer's schedule runs on host scalars, which are the step's
@@ -429,12 +495,15 @@ def execute_cell(arch: str, shape_name: str, device: Device = None, *,
     if seq is not None:
         cell = dataclasses.replace(cell, seq_len=seq)
     B = batch or cell.global_batch
-    mesh = make_local_mesh(device, model=model) if model > 1 else None
-    if mesh is not None and mesh.shape["data"] != 1:
-        raise ValueError(f"a model axis of {model} over "
-                         f"{mesh.shape['data'] * model} processes: the "
-                         "executed cell takes a model axis only")
-    meta, _, _ = count_step(cfg, cell, B, "meta",
+    mesh = make_local_mesh(device, model=model) if model * data > 1 \
+        else None
+    if mesh is not None and dict(mesh.shape) != {"data": data,
+                                                 "model": model}:
+        raise ValueError(f"a mesh of {data} x {model} over "
+                         f"{mesh.size} processes")
+    if B % data:
+        raise ValueError(f"{B} rows do not divide over {data} data ranks")
+    meta, _, _ = count_step(cfg, cell, B // data, "meta",
                             device_view(mesh) if mesh else None)
     run, _ = build_step(cfg, cell, device, B, mesh)
     with op_analysis.count(device.type) as counter:
@@ -443,7 +512,7 @@ def execute_cell(arch: str, shape_name: str, device: Device = None, *,
     times = time_step(run, device)
     measured = statistics.median(times)
     roof = roofline(counter.flops_by_class, counter.bytes)
-    mf = model_flops(cfg, cell, B)
+    mf = model_flops(cfg, cell, B // data)
     reduced = {"layers": [full.num_layers, cfg.num_layers],
                "batch": [cfgbase.SHAPES[shape_name].global_batch, B],
                "seq": [cfgbase.SHAPES[shape_name].seq_len, cell.seq_len]}
@@ -451,9 +520,12 @@ def execute_cell(arch: str, shape_name: str, device: Device = None, *,
         reduced["d_model"] = [full.d_model, cfg.d_model]
     if model > 1:
         reduced["model_axis"] = [16, model]
+    if data > 1:
+        reduced["data_axis"] = [16, data]
     return {"arch": arch, "shape": shape_name, "device": str(device),
-            "reduced": reduced, "model": model,
+            "reduced": reduced, "model": model, "data": data,
             "model_rank": mesh.model_rank if mesh else 0,
+            "data_rank": mesh.rank if mesh else 0,
             "collectives": counter.summary()["collectives"],
             "count_equal": counter.summary() == meta.summary(),
             "count_diff": count_diff(counter.summary(), meta.summary()),

@@ -22,14 +22,16 @@ data axis. Two kinds are built here:
 And the dry run's meshes (``launch/dryrun.py``), which hold no devices:
 only axis names and sizes. ``make_dryrun_mesh("card")`` is one card;
 ``"node"`` is ``{data: 8}``, the eight cards of one H100 node under the
-data-parallel placement the port runs (parameters replicated, the batch
-split, gradients all-gathered and summed as ``train/train_step.
-sum_gradients`` does); ``"pod"`` and ``"multipod"`` are the JAX
-package's ``make_production_mesh`` shapes, ``{data: 16, model: 16}``
-and ``{pod: 2, data: 16, model: 16}`` (32 and 64 nodes of 8 H100s).
-They hold no group: a step is counted on ``meta`` for one device, with
-the model axis's collectives counted and not sent
-(``parallel/ops.py``), the data axis's from the port's plan.
+placement the port runs over "data" (FSDP: each weight's "embed" dim
+sliced over the ranks and gathered a block at a time, the batch split,
+the gradients of the sliced weights reduce-scattered and those of the
+others summed as ``train/train_step.sum_gradients`` does); ``"pod"``
+and ``"multipod"`` are the JAX package's ``make_production_mesh``
+shapes, ``{data: 16, model: 16}`` and ``{pod: 2, data: 16, model: 16}``
+(32 and 64 nodes of 8 H100s), FSDP over "data" and the model split over
+"model". They hold no group: a step is counted on ``meta`` for one
+device, with the collectives the step calls counted and not sent
+(``parallel/ops.py``), the gradient sums from the port's plan.
 """
 from __future__ import annotations
 
@@ -76,6 +78,14 @@ class Mesh:
         for a in ("pod", "data"):
             n *= int(self.shape.get(a, 1))
         return n
+
+    @property
+    def data_slices(self) -> int:
+        """The ranks the "data" axis slices the weights over (FSDP: the
+        "embed" dims of ``parallel/sharding.default_rules``): the data
+        axis of a mesh over processes or of a dry run's mesh, 1 for a
+        mesh of one process."""
+        return int(self.shape.get("data", 1)) if self.processes > 1 else 1
 
 
 def make_production_mesh(multi_pod: bool = False) -> Mesh:

@@ -28,17 +28,20 @@ So this module counts the ops themselves, as they run, on any device
   (the card's launch, the CPU's plain version, ``meta``'s empty result),
   with the aten ops of the wrapper's own body not counted. So a step
   counts the same on ``meta``, the CPU and the card.
-* **collectives of the model axis**, as they run: each of
-  ``parallel/ops.py``'s model-axis collectives reports its kind and its
-  output bytes through ``kernels/count.collective`` (on ``meta`` nothing
-  is sent, the receive buffers are only shaped), so a step under a
-  "model" axis counts its own gathers, those of a rematerialised
-  block's backward too;
-* **collectives of the data axis**, from the port's own plan
+* **collectives the step calls**, as they run: each of
+  ``parallel/ops.py``'s collectives (the model axis's; FSDP's weight
+  gathers over "data" and its gradients' reduce-scatters, which run as
+  n all-gathers, one for each rank's float32 slice; the ``gather_sum``
+  of the loss and of each MoE layer's router statistics) reports its
+  kind and its output bytes through ``kernels/count.collective`` (on
+  ``meta`` nothing is sent, the receive buffers are only shaped), so a step
+  counts its own collectives, a rematerialised block's again in its
+  backward;
+* **the gradient sums after the backward**, from the port's own plan
   (``collective_plan``): the float32 buckets that
-  ``train/train_step.sum_gradients`` all-gathers, and the gathers of
-  ``parallel/ops.gather_sum`` (the loss's and each MoE layer's router
-  statistics), by type as the JAX ``collectives``.
+  ``train/train_step.sum_gradients`` all-gathers for the weights every
+  data rank holds whole, and over a pod axis the sliced weights' sum,
+  by type as the JAX ``collectives``.
 
 Counts are Python integers, so two counts of one step compare exactly.
 """
@@ -54,7 +57,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.kernels import count as kernel_count
-from repro_torch.models import moe
 from repro_torch.train import train_step as steps
 
 MATMULS = {"mm", "addmm", "bmm", "baddbmm"}
@@ -305,30 +307,33 @@ def count(device_type: str) -> Iterator[OpCounter]:
 
 # -- collectives --------------------------------------------------------------
 
-def collective_plan(model, ranks: int, train: bool) -> dict:
-    """The collectives of one step of ``model`` on a data-parallel mesh
-    of ``ranks`` processes, by type, as the JAX ``collectives``: for
-    each, its count and its output bytes a device. Training sends the
-    gradient buckets of ``train_step.sum_gradients`` (float32, each an
-    all-gather of ``ranks`` parts) and the all-gathers of
-    ``parallel/ops.gather_sum``: the loss, and each MoE layer's router
-    statistics (2E + 1 floats), twice for a rematerialised layer (its
-    forward runs again in the backward). Serving replicas send nothing."""
+def collective_plan(model, ranks: int, train: bool,
+                    data: int = 1) -> dict:
+    """The collectives that follow one training step's backward on a
+    mesh whose batch axes span ``ranks`` processes and whose "data" axis
+    slices the weights over ``data`` of them, by type, as the JAX
+    ``collectives``: for each, its count and its output bytes a device.
+    The gradient buckets of ``train_step.sum_gradients`` (float32, each
+    an all-gather of its ranks' parts): the weights every data rank
+    holds whole over all ``ranks``, and the sliced ones (``model.
+    data_dims``, already reduce-scattered over "data" in the backward)
+    over the pod axis's ``ranks / data`` replicas of each slice. What
+    the step calls itself is counted as it runs, not here. Serving sends
+    nothing after the step."""
     out = {c: {"count": 0, "bytes": 0} for c in COLLECTIVES}
-    if ranks > 1 and train:
+    if train:
         gather = out["all-gather"]
-        numels = [p.numel() for p in model.parameters()]
-        for bucket in steps.gradient_buckets(numels):
-            gather["count"] += 1
-            gather["bytes"] += ranks * 4 * sum(n for _, _, n in bucket)
-        gather["count"] += 1                      # the loss
-        gather["bytes"] += ranks * 4
-        remat = 2 if model.cfg.remat else 1
-        for block in model.blocks:
-            if isinstance(block.ffn, moe.MoE):
-                gather["count"] += remat
-                gather["bytes"] += remat * ranks * 4 * (
-                    2 * block.ffn.n_experts + 1)
+        sliced = model.data_dims
+        for n_ranks, numels in (
+                (ranks, [p.numel() for n, p in model.named_parameters()
+                         if n not in sliced]),
+                (ranks // data, [p.numel() for n, p in
+                                 model.named_parameters() if n in sliced])):
+            if n_ranks < 2 or not sum(numels):
+                continue
+            for bucket in steps.gradient_buckets(numels):
+                gather["count"] += 1
+                gather["bytes"] += n_ranks * 4 * sum(n for _, _, n in bucket)
     out["total_bytes"] = sum(v["bytes"] for v in out.values()
                              if isinstance(v, dict))
     return out

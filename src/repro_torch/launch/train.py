@@ -16,18 +16,26 @@ bits.
 
 Under ``torch.distributed.run`` (torchrun; ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK`` in the environment) the run is data-parallel over the
-ranks, with the backend ``--dist-backend`` names (NCCL by default; gloo
-too, e.g. for two ranks sharing one card, which NCCL refuses; a backend
-that fails raises, no other is tried): each rank trains on its rows of
-the global ``--batch`` (``train_step.shard_batch``; a batch that does not
-divide raises) on ``--device``, by default ``cuda:LOCAL_RANK`` where
-there are several cards, and the ranks' gradients are summed in a fixed
-order, so every rank holds the same parameters. Rank 0 writes the
-checkpoints while the others wait; a SIGTERM on any rank stops every
-rank after the same step (a stop flag is all-reduced every step); and
+ranks, placed as the JAX launcher places it (FSDP over "data"), with the
+backend ``--dist-backend`` names (NCCL by default; gloo too, e.g. for
+two ranks sharing one card, which NCCL refuses; a backend that fails
+raises, no other is tried): each rank builds its slice of the model
+(``transformer.init_model(..., mesh=...)``: every weight with an
+"embed" dim and its AdamW moments sliced over the ranks, the rest
+whole), trains on its rows of the global ``--batch``
+(``train_step.shard_batch``; a batch that does not divide raises) on
+``--device``, by default ``cuda:LOCAL_RANK`` where there are several
+cards, gathers each block's weights where the block runs, and reduces
+the gradients in a fixed order, so the ranks' slices together are the
+parameters one process would hold. The checkpoints hold the whole tree:
+each sliced leaf is gathered in rank order and rank 0 writes it while
+the others wait, and a restore keeps each rank's slice, so a checkpoint
+restores at any world size; a SIGTERM on any rank stops every rank
+after the same step (a stop flag is all-reduced every step); and
 ``--resume auto`` at the same world size repeats the uninterrupted run
-bit for bit. A caller that has set up the default process group itself
-(tests) gets it used as it is. The run is in PyTorch's deterministic mode
+bit for bit. One rank, or no process group, is the plain trainer. A
+caller that has set up the default process group itself (tests) gets it
+used as it is. The run is in PyTorch's deterministic mode
 (``train_step.deterministic``), and cuBLAS's workspace is set for it
 before the first handle, so that every step's bits repeat.
 """
@@ -151,7 +159,8 @@ def _loop(args, cfg, device, out, stop, wrap_step) -> None:
     group = mesh.group
     out["world_size"] = mesh.processes
     gen = torch.Generator(device=device).manual_seed(0)
-    model = transformer.init_model(cfg, gen, device, trainable=True)
+    model = transformer.init_model(cfg, gen, device, trainable=True,
+                                   mesh=mesh)
     params = dict(model.named_parameters())
     ocfg = opt.AdamWConfig(lr=args.lr, total_steps=args.steps)
     ostate = opt.init_opt_state(params)
@@ -161,7 +170,8 @@ def _loop(args, cfg, device, out, stop, wrap_step) -> None:
     start_step = 0
     if args.resume == "auto" and args.ckpt:
         restored = checkpoint.restore_latest(
-            args.ckpt, {"params": params, "opt": ostate})
+            args.ckpt, {"params": params, "opt": ostate},
+            shard=lambda key, t: model.slice_of(key.rpartition("/")[2], t))
         if restored is not None:
             tree, manifest = restored
             with torch.no_grad():
@@ -176,10 +186,14 @@ def _loop(args, cfg, device, out, stop, wrap_step) -> None:
         cfg, ocfg, mesh=mesh if group is not None else None)
     log = mesh.rank == 0
 
+    # the tree's leaves each rank holds a slice of, and their dims
+    sliced = {f"{k}/{n}": d for n, d in model.data_dims.items()
+              for k in ("params", "opt/m", "opt/v")}
+
     def save(step):
         checkpoint.save(args.ckpt, step, {"params": params, "opt": ostate},
                         extra={"next_step": step, "arch": args.arch},
-                        group=group)
+                        group=group, sliced=sliced)
 
     # real-host step timing of the training harness (as the JAX launcher's
     # waiver says); it never feeds a simulated clock

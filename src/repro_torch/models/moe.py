@@ -108,11 +108,9 @@ def aux_losses(logits: torch.Tensor, probs: torch.Tensor,
     top1.index_add_(0, gate_i[:, 0],                 # counts: exact sums
                     torch.ones(T, dtype=torch.float32, device=probs.device))
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
-    group = pops.data_process_group()
-    if group is not None:
-        n = pops.data_ranks(group)
-        stats = pops.gather_sum(torch.cat([density, top1, z_loss[None]]),
-                                group)
+    n = pops.data_ranks()
+    if n > 1:
+        stats = pops.gather_sum(torch.cat([density, top1, z_loss[None]]))
         density, top1, z_loss = stats[:E] / n, stats[E:2 * E], stats[-1] / n
         T = T * n
     lb_loss = (top1 / T * density).sum() * n_experts
@@ -156,7 +154,10 @@ def moe_ffn(x: torch.Tensor, params: Mapping, *, n_experts: int,
 
     # ---- grouped sort-based dispatch into per-expert capacity rows ----
     G = pops.local_group_count()
-    if pops.data_process_group() is not None and T // G < n_experts:
+    if torch.is_grad_enabled() and pops.data_ranks() > 1 and \
+            T // G < n_experts:
+        # training only: a served rank routes its rows as one process
+        # would (a decode tick's few rows form one group)
         raise ValueError(f"a rank routes {T // G} tokens a group, fewer "
                          f"than the {n_experts} experts; the global "
                          "program would route them in one group")

@@ -36,7 +36,7 @@ params_from_jax(..., mesh=...)`` build one rank's model of a mesh whose
 "model" axis is m > 1 (``launch/mesh.make_local_mesh(device, model=m)``):
 the same weights as the whole model's, the JAX package's padded heads
 and experts kept, each weight cut to the rank's block by the port's
-placement (``placement``: ``parallel/sharding.model_rules`` over
+placement (``placement``: ``parallel/sharding.default_rules`` over
 ``param_specs``; vocab, heads, ffn, experts and Mamba's d_inner over
 "model"; the kv heads where ``attention.kv_split``; a dim m does not
 divide stays whole and is recorded, ``sharding_fallbacks()``). Such a
@@ -48,18 +48,42 @@ rematerialised block's again in the backward. Its decode caches
 rows of every kv head and its d_inner slice of a Mamba state. A
 parameter replicated over "model" (the norms, the router, a vocab that
 falls back) takes the same gradient, and keeps the same bits, on every
-model rank; ``model_split()`` says which are split, for the gradient
-norm (``train/optimizer.global_norm``).
+model rank.
+
+FSDP over "data". Where the mesh's data axis spans processes (n > 1),
+the model is built for the rank's coordinate on it too: every weight
+with an "embed" dim (``param_specs``' axes under ``parallel/sharding.
+default_rules``, the JAX package's placement) is held as the rank's
+slice of that dim, 1/n of it (a dim n does not divide stays whole and
+is recorded), and the AdamW moments built over the parameters are
+slices with them. A block's slices are gathered (``parallel/ops.
+data_gather``, rank order) inside the block's call (``Block.call``:
+``torch.func.functional_call`` of the block with its whole weights), so
+a rematerialised block gathers again in the backward, as the JAX scan
+body does under ``jax.checkpoint``, and the gathered weights live only
+inside the call; the backward reduce-scatters each weight's gradient
+to the rank's slice in a fixed order. The embedding table, the LM
+head's table and the final norm are gathered once a step, outside the
+block loop (``whole_top``): a tied table is gathered once and read
+twice, so its gradient is reduce-scattered once. A leaf with no
+"embed" dim (Mamba's ``conv_w``, ``x_proj``, ``dt_w``, ``A_log``,
+``D``; mLSTM's inner ``wq``, ``wk``, ``wv``; sLSTM's ``r``) stays whole
+on every data rank, its gradient summed by ``train/train_step.
+sum_gradients``. ``split_axes()`` says which axes split each parameter,
+for the gradient norm (``train/optimizer.global_norm``) and the
+checkpoint (``data_dims``: the dim a parameter is sliced on).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import Device, resolve_device
 from repro_torch.models import attention, layers, moe, ssm, xlstm
 from repro_torch.parallel import ops as pops
@@ -120,7 +144,10 @@ class Block(nn.Module):
     (``models/moe.py``), or no FFN (``ffn == "none"``, no ``norm2``).
     ``cdt``: the compute type the modules cast their weights to at use
     (None when they are held in it); ``trainable``: the weights take
-    gradients."""
+    gradients. Its entry points (``prefill``, ``train_forward``,
+    ``decode``) are run through ``call``, which gathers the weights a
+    data axis slices (``data_dims``: name -> dim, set when the model
+    slices the block)."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec,
                  w: Dict[str, torch.Tensor],
@@ -152,11 +179,26 @@ class Block(nn.Module):
                                   tp=tps.get("ffn"), **held)
         if self.ffn is not None:
             self.norm2 = layers.RMSNorm(w["norm2"], cfg.norm_eps, trainable)
+        self.data_dims: Dict[str, int] = {}
+
+    def call(self, method: str, *args):
+        """``method``'s result, with the weights sliced over "data"
+        gathered in rank order for this call only."""
+        if not self.data_dims:
+            return getattr(self, method)(*args)
+        whole = {n: pops.data_gather(self.get_parameter(n), d)
+                 for n, d in self.data_dims.items()}
+        return functional_call(self, whole, (method,) + args)
+
+    def forward(self, method: str, *args):
+        """``method`` of the block, the target of ``call``'s
+        ``functional_call``."""
+        return getattr(self, method)(*args)
 
     def _ffn(self, x):
         return x if self.ffn is None else x + self.ffn(self.norm2(x))
 
-    def forward(self, x, positions, emit_cache: bool,
+    def prefill(self, x, positions, emit_cache: bool,
                 cache_len: Optional[int] = None):
         h = self.norm1(x)
         if not self.attends:
@@ -197,6 +239,13 @@ class Block(nn.Module):
         return self._ffn(x + out)
 
 
+class DataSlice(NamedTuple):
+    """A model's place on a "data" axis that slices its weights (FSDP):
+    the number of slices and this rank's."""
+    size: int
+    rank: int
+
+
 class Transformer(nn.Module):
     """The model, served, or trained when ``trainable`` (weights held in
     ``cfg.param_dtype`` as trainable Parameters, cast to the compute type
@@ -220,8 +269,13 @@ class Transformer(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         m = 1 if mesh is None else int(mesh.shape.get("model", 1))
+        n = 1 if mesh is None else mesh.data_slices
         self.tp = layers.TP(m, mesh.model_rank) if m > 1 else None
-        place, self.fallbacks = placement(cfg, mesh) if self.tp else ({}, [])
+        self.fsdp = DataSlice(n, mesh.rank) if n > 1 else None
+        place, self.fallbacks = placement(cfg, mesh) \
+            if self.tp or self.fsdp else ({}, [])
+        # parameter name -> the dim its slice over "data" is cut from
+        self.data_dims: Dict[str, int] = {}
         cdt = torch_dtype(cfg.compute_dtype)
         # the type the weights are held in, and the one modules cast to
         held = torch_dtype(cfg.param_dtype) if trainable else cdt
@@ -241,6 +295,14 @@ class Transformer(nn.Module):
         def vocab(t, path):
             return _cut(t, place[path], mesh, self.tp) if self.tp else t
 
+        def sliced(mod, prefix, spec_of):
+            """``mod``'s weights cut to this rank's slices over "data";
+            {name: dim} of those cut."""
+            dims = _slice_over_data(mod, spec_of, self.fsdp) \
+                if self.fsdp else {}
+            self.data_dims.update({prefix + n: d for n, d in dims.items()})
+            return dims
+
         self.vocab_tp = self.tp if self.tp and \
             "model" in place[("embed", "table")] else None
         self.embed = layers.weight(cast(vocab(weights["embed"],
@@ -248,18 +310,26 @@ class Transformer(nn.Module):
         self.unembed = None if cfg.tie_embeddings else \
             layers.weight(cast(vocab(weights["unembed"],
                                      ("unembed", "table"))), trainable)
+        sliced(self, "", lambda n: place[(n, "table")])
         blocks = []
         for i, w in enumerate(weights["layers"]):
             j = i % len(cfg.pattern)
             tps = None
             if self.tp:
                 w, tps = _cut_layer(cfg, j, w, place, mesh, self.tp)
-            blocks.append(Block(cfg, cfg.pattern[j], cast_block(w),
-                                self.cdt, trainable, tps))
+            block = Block(cfg, cfg.pattern[j], cast_block(w), self.cdt,
+                          trainable, tps)
             del w           # freed before the next layer is drawn
+            # the layer axis of the JAX spec dropped
+            block.data_dims = sliced(
+                block, f"blocks.{i}.",
+                lambda n, j=j: place[("blocks", j) + _jax_path(n)][1:])
+            blocks.append(block)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = layers.RMSNorm(
             weights["final_norm"].to(device), cfg.norm_eps, trainable)
+        sliced(self.final_norm, "final_norm.",
+               lambda n: place[("final_norm", n)])
         # sqrt(d_model) rounded to the compute type, as the JAX package
         # multiplies a compute-type embedding by a Python float
         self.register_buffer("embed_scale", torch.tensor(
@@ -269,29 +339,46 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        table = layers.use(self.embed, self.cdt)
+    def whole_top(self) -> Dict[str, torch.Tensor]:
+        """The embedding table (``embed``), the LM head's table
+        (``head``: the same tensor when the config ties them) and the
+        final norm's scale (``final_norm``), each gathered once over
+        "data" where it is sliced; the parameters themselves otherwise."""
+        def whole(name):
+            d = self.data_dims.get(name)
+            p = self.get_parameter(name)
+            return p if d is None else pops.data_gather(p, d)
+        embed = whole("embed")
+        return {"embed": embed,
+                "head": embed if self.unembed is None else whole("unembed"),
+                "final_norm": whole("final_norm.scale")}
+
+    def _embed(self, tokens: torch.Tensor, top) -> torch.Tensor:
+        table = layers.use(top["embed"], self.cdt)
         if self.vocab_tp is not None:
             return layers.vocab_embed(tokens, table, self.vocab_tp) * \
                 self.embed_scale
         return layers.embed(tokens, table) * self.embed_scale
 
-    def _table(self) -> torch.Tensor:
+    def _table(self, top) -> torch.Tensor:
         """The LM head's table in the compute type."""
-        table = self.embed if self.unembed is None else self.unembed
-        return layers.use(table, self.cdt)
+        return layers.use(top["head"], self.cdt)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _final_norm(self, x: torch.Tensor, top) -> torch.Tensor:
+        return ops.rmsnorm(x, top["final_norm"], self.final_norm.eps)
+
+    def _logits(self, x: torch.Tensor, top) -> torch.Tensor:
         """The whole vocab's logits, gathered in rank order where the
         vocab is split over a model axis (every rank samples alike)."""
-        logits = layers.unembed_logits(x, self._table())
+        logits = layers.unembed_logits(x, self._table(top))
         if self.vocab_tp is not None:
             logits = pops.model_gather(logits, dim=-1)
         return logits
 
     def check_axis(self) -> None:
-        """Raise unless the installed mesh's model axis is the one this
-        model was built for (one rank's weights run only under it)."""
+        """Raise unless the installed mesh's model and data axes are the
+        ones this model was built for (one rank's weights run only under
+        them)."""
         m, r = self.tp if self.tp else (1, 0)
         if pops.model_size() != m or (m > 1 and pops.model_rank() != r):
             raise ValueError(f"the model was built for rank {r} of a model "
@@ -299,20 +386,41 @@ class Transformer(nn.Module):
                              f"{pops.model_rank()} of {pops.model_size()}: "
                              "run it under parallel/ops.use_mesh of its "
                              "mesh")
+        n, q = self.fsdp if self.fsdp else (1, 0)
+        if n > 1 and (pops.data_slices() != n or pops.data_rank() != q):
+            raise ValueError(f"the model was built for slice {q} of a data "
+                             f"axis of {n}; the installed mesh is rank "
+                             f"{pops.data_rank()} of {pops.data_slices()}: "
+                             "run it under parallel/ops.use_mesh of its "
+                             "mesh")
 
-    def model_split(self) -> Dict[str, bool]:
-        """Which parameters are split over the model axis, by
-        ``named_parameters`` name (all False without one)."""
+    def slice_of(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``t``, a whole tensor of parameter
+        ``name``'s shape (its gradient, a moment, a checkpoint's leaf):
+        the slice over "data" the parameter holds, ``t`` itself where it
+        is whole. A view of ``t``."""
+        d = self.data_dims.get(name)
+        if d is None:
+            return t
+        size = t.shape[d] // self.fsdp.size
+        return t.narrow(d, self.fsdp.rank * size, size)
+
+    def split_axes(self) -> Dict[str, tuple]:
+        """The mesh axes each parameter is split over, by
+        ``named_parameters`` name: ``("data",)``, ``("model",)``, both,
+        or ``()`` (whole on every rank of the mesh)."""
         split = set()
         for prefix, mod in self.named_modules():
             for n in getattr(mod, "split", ()):
                 split.add(f"{prefix}.{n}" if prefix else n)
         if self.vocab_tp is not None:
             split |= {"embed", "unembed"}
-        return {n: n in split for n, _ in self.named_parameters()}
+        return {n: ("data",) * (n in self.data_dims) +
+                ("model",) * (n in split)
+                for n, _ in self.named_parameters()}
 
     def sharding_fallbacks(self) -> list:
-        """The dims the model axis does not divide, kept whole
+        """The dims the model or data axis does not divide, kept whole
         (``parallel/sharding.explain_fallbacks``)."""
         return sharding.explain_fallbacks(self.fallbacks)
 
@@ -538,18 +646,19 @@ def param_specs(cfg: ModelConfig) -> List[layers.ParamSpec]:
 
 
 def placement(cfg: ModelConfig, mesh):
-    """The port's placement of ``cfg``'s weights over ``mesh``'s model
-    axis: {JAX path: spec} (``param_specs``' paths, the specs of
-    ``parallel/sharding.param_shardings`` under ``model_rules``, the kv
-    heads replicated where ``attention.kv_split`` is false), and the
-    fallback records."""
+    """The port's placement of ``cfg``'s weights over ``mesh``: {JAX
+    path: spec} (``param_specs``' paths, the specs of ``parallel/
+    sharding.param_shardings`` under ``default_rules``: "embed" over
+    "data", the rest over "model", the kv heads replicated over "model"
+    where ``attention.kv_split`` is false), and the fallback records."""
     m = int(mesh.shape.get("model", 1))
     fallbacks: list = []
     specs = param_specs(cfg)
-    placed = sharding.param_shardings(specs, mesh, sharding.model_rules(mesh),
-                                      fallbacks)
+    placed = sharding.param_shardings(specs, mesh,
+                                      sharding.default_rules(mesh), fallbacks)
     out = {}
-    kv_whole = not attention.kv_split(cfg.num_heads, cfg.num_kv_heads, m)
+    kv_whole = m > 1 and not attention.kv_split(cfg.num_heads,
+                                                cfg.num_kv_heads, m)
     for p, spec in zip(specs, placed):
         if p.path[-1] in ("wk", "wv") and "kv_heads" in p.axes and \
                 kv_whole and "model" in spec:
@@ -557,6 +666,51 @@ def placement(cfg: ModelConfig, mesh):
             fallbacks.append(("kv_heads", cfg.num_kv_heads, ("model",)))
         out[p.path] = spec
     return out, fallbacks
+
+
+def _jax_path(name: str) -> tuple:
+    """The JAX path under a block of a block's parameter ``name``
+    (``mixer.w.in_proj`` -> ``("mixer", "in_proj")``)."""
+    parts = name.split(".")
+    if parts[:2] == ["mixer", "w"]:
+        parts = ["mixer"] + parts[2:]
+    return tuple(parts)
+
+
+def _data_dim(spec, ndim: int) -> Optional[int]:
+    """The dim of the port's weight (``ndim`` dims) that the JAX ``spec``
+    slices over "data", or None. The port holds the JAX layout but for
+    attention's heads, flattened with the head dim; the "embed" dim is
+    then the first or the last."""
+    k = len(spec)
+    for i, e in enumerate(spec):
+        if e is not None and "data" in ((e,) if isinstance(e, str) else e):
+            if ndim == k or i == 0:
+                return i
+            if i == k - 1:
+                return ndim - 1
+            raise ValueError(f"no port dim for dim {i} of {spec}")
+    return None
+
+
+def _slice_over_data(mod: nn.Module, spec_of,
+                     fsdp: DataSlice) -> Dict[str, int]:
+    """Each parameter of ``mod`` whose JAX spec (``spec_of(name)``)
+    splits a dim over "data" replaced by this rank's slice of it (a
+    tensor of its own; the whole freed); returns {name: dim}."""
+    dims = {}
+    for name, p in list(mod.named_parameters()):
+        dim = _data_dim(spec_of(name), p.dim())
+        if dim is None:
+            continue
+        owner, _, attr = name.rpartition(".")
+        size = p.shape[dim] // fsdp.size
+        cut = p.detach().narrow(dim, fsdp.rank * size, size).clone(
+            memory_format=torch.contiguous_format)
+        setattr(mod.get_submodule(owner), attr,
+                nn.Parameter(cut, requires_grad=p.requires_grad))
+        dims[name] = dim
+    return dims
 
 
 def _cut(t: torch.Tensor, spec, mesh, tp: layers.TP) -> torch.Tensor:
@@ -658,16 +812,19 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def forward_hidden(model: Transformer, tokens: torch.Tensor,
-                   prefix_embeds: Optional[torch.Tensor] = None):
+                   prefix_embeds: Optional[torch.Tensor] = None, top=None):
     """The training forward (``repro/models/transformer.py::
     forward_hidden`` without caches): tokens (B, S), optional prefix
     embeddings (B, P, d) placed before them -> (the final-normed hidden
     states (B, P+S, d), (lb_loss, z_loss) summed over the layers, float32).
     With ``cfg.remat`` and grad enabled each block is checkpointed: its
-    forward is run again in the backward, and routes the same tokens to
-    the same experts because every forward kernel is bit-reproducible."""
+    forward (its weights' gathers over "data" included) is run again in
+    the backward, and routes the same tokens to the same experts because
+    every forward kernel is bit-reproducible. ``top``: the model's
+    ``whole_top()``, taken here when None."""
     model.check_axis()
-    x = model._embed(tokens)
+    top = model.whole_top() if top is None else top
+    x = model._embed(tokens, top)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -675,12 +832,12 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor,
     remat = model.cfg.remat and torch.is_grad_enabled()
     for block in model.blocks:
         if remat:
-            x, lb_i, z_i = checkpoint(block.train_forward, x, positions,
-                                      use_reentrant=False)
+            x, lb_i, z_i = checkpoint(block.call, "train_forward", x,
+                                      positions, use_reentrant=False)
         else:
-            x, lb_i, z_i = block.train_forward(x, positions)
+            x, lb_i, z_i = block.call("train_forward", x, positions)
         lb, z = lb + lb_i, z + z_i
-    return model.final_norm(x), (lb, z)
+    return model._final_norm(x, top), (lb, z)
 
 
 def train_loss(model: Transformer, batch: Dict) -> torch.Tensor:
@@ -691,11 +848,14 @@ def train_loss(model: Transformer, batch: Dict) -> torch.Tensor:
     processes (data-parallel training) the batch is this rank's rows and
     the loss is the global batch's, the same on every rank."""
     prefix = batch.get("prefix_embeds")
-    x, (lb, z) = forward_hidden(model, batch["tokens"], prefix)
+    model.check_axis()
+    top = model.whole_top()
+    x, (lb, z) = forward_hidden(model, batch["tokens"], prefix, top)
     npfx = 0 if prefix is None else prefix.shape[1]
-    nll = layers.chunked_xent(x[:, npfx:], model._table(), batch["labels"],
-                              model.cfg.logit_chunk, model.vocab_tp)
-    if pops.data_process_group() is not None:
+    nll = layers.chunked_xent(x[:, npfx:], model._table(top),
+                              batch["labels"], model.cfg.logit_chunk,
+                              model.vocab_tp)
+    if pops.data_ranks() > 1:
         # data-parallel: every rank holds as many tokens, so the global
         # mean is the mean of the ranks' means (the aux losses are global
         # already, models/moe.py)
@@ -717,18 +877,19 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     position p at row p % S. Under a model axis each attention cache is
     this rank's rows of its ring, every kv head."""
     model.check_axis()
-    x = model._embed(tokens)
+    top = model.whole_top()
+    x = model._embed(tokens, top)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     caches = []
     for block in model.blocks:
-        x, cache = block(x, positions, emit_cache=True, cache_len=cache_len)
+        x, cache = block.call("prefill", x, positions, True, cache_len)
         caches.append(cache)
     # the last position of every row, contiguous: the norm's kernel takes
     # contiguous rows (a (B, 1, d) slice of B > 1 rows is not)
-    x = model.final_norm(x[:, -1:].contiguous())
-    return model._logits(x), caches
+    x = model._final_norm(x[:, -1:].contiguous(), top)
+    return model._logits(x, top), caches
 
 
 @torch.no_grad()
@@ -740,10 +901,11 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
     place; returns (logits (B, 1, V), caches)."""
     model.check_axis()
     pos = pos.to(device=model.device, dtype=torch.int32).reshape(-1)
-    x = model._embed(tokens)
+    top = model.whole_top()
+    x = model._embed(tokens, top)
     for block, cache in zip(model.blocks, caches):
-        x = block.decode(x, cache, pos)
-    return model._logits(model.final_norm(x)), caches
+        x = block.call("decode", x, cache, pos)
+    return model._logits(model._final_norm(x, top), top), caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,

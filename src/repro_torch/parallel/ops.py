@@ -40,15 +40,38 @@ device, model=m)``):
 Each is the identity, or a list of one, without a model axis. There is
 no all-reduce: its order of addition is the backend's, and with sums in
 rank order every tensor replicated over "model" has the same bits on
-every model rank. On ``meta`` (the dry run's ``pod`` and ``multipod``,
-whose mesh holds no group) nothing is sent: the other ranks' tensors
-are only shaped. On every device each collective reports its kind and
-its output bytes to the op count (``kernels/count.collective``).
+every model rank.
+
+FSDP over "data" (the JAX package's "embed" -> "data" rule). A model
+built for a rank of a mesh whose data axis spans processes holds each
+weight with an "embed" dim as its slice of that dim
+(``models/transformer.py``), and gathers it where it is used:
+
+  * ``data_gather(w, dim)``: the data ranks' slices concatenated on
+    ``dim`` in rank order, so every rank holds the whole weight bit for
+    bit; its backward is a reduce-scatter in a fixed order: for each
+    rank k in turn, slice k of every rank's gradient all-gathered in
+    float32, and rank k adds them rank 0 first and rounds once to the
+    gradient's type, the bits that ``train/train_step.sum_gradients``
+    gives for those elements. The n gathers move the bytes of one
+    gather of the whole gradient and hold one whole gradient in float32
+    at a time, not n of them (all-gathered, not sent with
+    ``all_to_all``, which would move 1/n of the bytes but which gloo
+    takes for CPU tensors only, nor with a ``reduce_scatter``, whose
+    order of addition is the backend's);
+  * ``data_sum(x)``: ``x`` summed over the data axis's slices in rank
+    order (no gradient), for the gradient norm of sliced leaves;
+  * ``data_slices()``, ``data_rank()``.
+
+On ``meta`` (the dry run's meshes, which hold no group) nothing is
+sent: the other ranks' tensors are only shaped. On a real tensor a
+collective with no process group raises; none falls back to a local
+copy. On every device each collective reports its kind and its output
+bytes to the op count (``kernels/count.collective``).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
 
 import torch
 
@@ -80,13 +103,6 @@ def data_group_count() -> int:
     return size
 
 
-def data_process_group():
-    """The process group of the installed mesh when its data axis spans
-    processes (one or more), else None."""
-    mesh = _STATE["mesh"]
-    return None if mesh is None else mesh.group
-
-
 def local_group_count() -> int:
     """Data-parallel groups this process holds: ``data_group_count()``
     over the processes the data axis spans (a dry run's mesh: one
@@ -94,6 +110,15 @@ def local_group_count() -> int:
     mesh = _STATE["mesh"]
     return max(data_group_count() // (1 if mesh is None else
                                       mesh.processes), 1)
+
+
+def data_ranks() -> int:
+    """The processes the installed mesh's batch axes span
+    (``Mesh.processes``: a dry run's mesh counts one a device), over
+    which the loss's means and the router statistics are summed; 1
+    without a mesh."""
+    mesh = _STATE["mesh"]
+    return 1 if mesh is None else mesh.processes
 
 
 class _GatherSum(torch.autograd.Function):
@@ -104,28 +129,85 @@ class _GatherSum(torch.autograd.Function):
     the global function."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        return _rank_sum(_parts(x, group,
-                                torch.distributed.get_world_size(group)))
+    def forward(ctx, x, group, n):
+        return _rank_sum(_parts(x, group, n))
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
-def gather_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """``x`` summed over the ranks of ``group`` (default: the installed
-    mesh's, ``data_process_group``); ``x`` itself with no group."""
-    group = group if group is not None else data_process_group()
-    if group is None:
+def gather_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the installed mesh's ``data_ranks()`` (its
+    group's ranks); ``x`` itself with one."""
+    n = data_ranks()
+    if n == 1:
         return x
-    return _GatherSum.apply(x, group)
+    return _GatherSum.apply(x, _STATE["mesh"].group, n)
 
 
-def data_ranks(group: Optional[object] = None) -> int:
-    """Ranks of ``group`` (default: the installed mesh's), 1 without."""
-    group = group if group is not None else data_process_group()
-    return 1 if group is None else torch.distributed.get_world_size(group)
+# -- FSDP over "data" ---------------------------------------------------------
+
+def data_slices() -> int:
+    """The ranks the installed mesh's "data" axis slices the weights over
+    (``Mesh.data_slices``; 1 without a mesh)."""
+    mesh = _STATE["mesh"]
+    return 1 if mesh is None else mesh.data_slices
+
+
+def data_rank() -> int:
+    """This process's coordinate on the "data" axis (0 on ``meta``, whose
+    count is one device's, and without a mesh)."""
+    mesh = _STATE["mesh"]
+    return 0 if mesh is None else mesh.rank
+
+
+class _DataGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, dim, group, n, rank):
+        ctx.dim, ctx.group, ctx.n, ctx.rank = dim, group, n, rank
+        return torch.cat(_parts(w, group, n), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        size = grad.shape[ctx.dim] // ctx.n
+        mine = None
+        for k in range(ctx.n):
+            parts = _parts(grad.narrow(ctx.dim, k * size, size).float(),
+                           ctx.group, ctx.n)
+            if k == ctx.rank:
+                mine = _rank_sum(parts).to(grad.dtype)
+            del parts
+        return mine, None, None, None, None
+
+
+def data_gather(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole weight of this rank's slice ``w`` (sliced on ``dim`` over
+    the installed mesh's "data" axis): the ranks' slices concatenated in
+    rank order; the backward reduce-scatters the gradient in a fixed
+    order (the module's docstring). Raises without a data axis to
+    gather over."""
+    n = data_slices()
+    if n == 1:
+        raise RuntimeError("data_gather: the installed mesh has no data "
+                           "axis over processes; run a model sliced over "
+                           "\"data\" under parallel/ops.use_mesh of its mesh")
+    mesh = _STATE["mesh"]
+    return _DataGather.apply(w, dim % w.dim(), mesh.group, n, mesh.rank)
+
+
+@torch.no_grad()
+def data_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the data axis's slices in rank order (``x``
+    itself with one), no gradient."""
+    n = data_slices()
+    return x if n == 1 else _rank_sum(_parts(x, _STATE["mesh"].group, n))
+
+
+@torch.no_grad()
+def all_parts(x: torch.Tensor, group) -> list:
+    """The ranks of ``group``'s ``x`` in rank order (no gradient)."""
+    return _parts(x, group, torch.distributed.get_world_size(group))
 
 
 # -- the "model" axis ---------------------------------------------------------

@@ -13,19 +13,21 @@ Default rules:
   embed  -> "data"; vocab/heads/kv_heads/ffn/expert -> "model"
   batch  -> ("pod", "data") as far as the mesh has them
 
-The port runs the batch rule (``data_batch_specs``: the rows a
-data-parallel rank trains on), the scoring rules below, and the "model"
-rules: vocab, heads, kv heads, ffn and experts over "model"
-(``model_rules``: the default rules without "embed" -> "data", the FSDP
-half of the JAX placement, which the port does not run yet).
-``param_shardings`` and ``cache_shardings`` place the parameters (the
-JAX layout of ``models/transformer.py::param_specs``) and the decode
-caches (stacked over periods, ``launch/specs.stacked_caches``) by the
-rules, as the JAX package's do, fallbacks recorded; ``local_shard``
-cuts a rank's block of a leaf by its spec, which is how a model is
-built for one rank of a "model" axis (``models/transformer.py``). The
-dry run (``launch/dryrun.py``) reads them for the per-device bytes of
-the JAX placement (``jax_memory``) beside the port's.
+The port runs them all (``default_rules``, the JAX placement): the
+batch rule (``data_batch_specs``: the rows a data-parallel rank trains
+on), the scoring rules below, "embed" over "data" (FSDP: every weight
+with an "embed" dim held as each data rank's slice of it, gathered
+where it is used, ``parallel/ops.data_gather``) and vocab, heads, kv
+heads, ffn and experts over "model". ``param_shardings`` and
+``cache_shardings`` place the parameters (the JAX layout of
+``models/transformer.py::param_specs``) and the decode caches (stacked
+over periods, ``launch/specs.stacked_caches``) by the rules, as the JAX
+package's do, fallbacks recorded; ``local_shard`` cuts a rank's block
+of a leaf by its spec, which is how a model is built for one rank of a
+mesh (``models/transformer.py``: the model axis's blocks before a layer
+is built, then each weight's slice over "data"). The dry run
+(``launch/dryrun.py``) reads them for the per-device bytes of the JAX
+placement (``jax_memory``) beside the port's.
 """
 from __future__ import annotations
 
@@ -48,13 +50,6 @@ def default_rules(mesh) -> Dict[str, Tuple[str, ...]]:
         "head_dim": (),
         "layer": (),
     }
-
-
-def model_rules(mesh) -> Dict[str, Tuple[str, ...]]:
-    """The placement the port runs: ``default_rules`` with "embed" not
-    split, so the weights are split over "model" only and replicated
-    over "data"."""
-    return dict(default_rules(mesh), embed=())
 
 
 def _entry_axes(entry) -> Tuple[str, ...]:

@@ -16,8 +16,14 @@ Ported from ``repro/train/checkpoint.py``:
 
 Under data parallelism (``group``: a ``torch.distributed`` process
 group) rank 0 writes and every rank waits at a barrier until it has, so
-no rank runs ahead of a checkpoint that a restart would read; every
-rank restores from the same directory.
+no rank runs ahead of a checkpoint that a restart would read. A leaf
+each rank holds a slice of (FSDP: ``sliced``, leaf key -> the dim it is
+sliced on over the group's ranks) is gathered in rank order, one leaf
+at a time, so no rank holds the whole model, and rank 0 writes the
+whole leaf: the files are those of one process whatever the world
+size. Every rank restores from the same directory, each leaf whole
+until ``restore_latest``'s ``shard`` keeps the rank's slice of it, so a
+checkpoint written at one world size restores at another.
 
 A tree is nested dicts and NamedTuples (``OptState``) whose leaves are
 tensors, NumPy arrays or Python numbers. NumPy has no bfloat16: a
@@ -36,6 +42,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.parallel import ops as pops
 
 
 def _items(tree):
@@ -76,27 +84,59 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _from_numpy(arr: np.ndarray, dtype: str, want):
+def _from_numpy(arr: np.ndarray, dtype: str, want, shard=None, key=""):
     if isinstance(want, torch.Tensor):
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        # (ascontiguousarray makes a 0-d array 1-d)
+        t = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)
         if dtype == "bfloat16":
             t = t.view(torch.bfloat16)
+        if shard is not None:
+            t = shard(key, t)
+        if tuple(t.shape) != tuple(want.shape):
+            raise ValueError(f"shape mismatch at {key}: {tuple(t.shape)} "
+                             f"vs {tuple(want.shape)}")
         return t.to(device=want.device, dtype=want.dtype)
     if isinstance(want, (bool, int, float)):
         return type(want)(arr.item())
     return arr.astype(np.asarray(want).dtype)
 
 
+def _gathered(leaves: Dict[str, Any], sliced: Mapping[str, int], group):
+    """(key, leaf) in order, each sliced leaf gathered over ``group`` in
+    rank order as it is reached."""
+    for key, leaf in leaves.items():
+        if key in sliced:
+            leaf = torch.cat(pops.all_parts(leaf.detach(), group),
+                             dim=sliced[key])
+        yield key, leaf
+
+
 def save(ckpt_dir: str, step: int, tree, *, extra: Optional[dict] = None,
-         keep: int = 3, group=None) -> Path:
+         keep: int = 3, group=None,
+         sliced: Optional[Mapping[str, int]] = None) -> Path:
     """Atomic checkpoint save. Returns the committed directory. With a
-    process ``group``, rank 0 saves and every rank returns after it has."""
+    process ``group``, rank 0 saves and every rank returns after it has;
+    the leaves ``sliced`` names (key -> dim) are gathered over the group
+    first, one at a time."""
+    leaves = _flatten(tree)
     if group is not None:
         import torch.distributed as dist
+        whole = _gathered(leaves, sliced or {}, group)
         if dist.get_rank(group) == 0:
-            save(ckpt_dir, step, tree, extra=extra, keep=keep)
+            _write(ckpt_dir, step, whole, extra, keep)
+        else:
+            for _ in whole:         # this rank's part of each gather
+                pass
         dist.barrier(group=group)
         return Path(ckpt_dir) / f"step_{step:09d}"
+    if sliced:
+        raise ValueError("sliced leaves are gathered over a process group: "
+                         "pass the group")
+    return _write(ckpt_dir, step, leaves.items(), extra, keep)
+
+
+def _write(ckpt_dir: str, step: int, leaves, extra: Optional[dict],
+           keep: int) -> Path:
     root = Path(ckpt_dir)
     root.mkdir(parents=True, exist_ok=True)
     tmp = root / f"step_{step:09d}.tmp"
@@ -106,7 +146,7 @@ def save(ckpt_dir: str, step: int, tree, *, extra: Optional[dict] = None,
     tmp.mkdir()
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
     files = set()
-    for key, leaf in _flatten(tree).items():
+    for key, leaf in leaves:
         arr, dtype = _to_numpy(leaf)
         fname = re.sub(r"[^\w\-\[\]]", "_", key) + ".npy"
         if fname in files:
@@ -136,7 +176,7 @@ def save(ckpt_dir: str, step: int, tree, *, extra: Optional[dict] = None,
     return final
 
 
-def _load_dir(path: Path, like_tree) -> Tuple[Any, dict]:
+def _load_dir(path: Path, like_tree, shard=None) -> Tuple[Any, dict]:
     with open(path / "manifest.json") as f:
         manifest = json.load(f)
     flat_like = _flatten(like_tree)
@@ -148,15 +188,21 @@ def _load_dir(path: Path, like_tree) -> Tuple[Any, dict]:
     for key, info in manifest["leaves"].items():
         arr = np.load(path / info["file"])
         want = flat_like[key]
-        if tuple(arr.shape) != tuple(np.shape(want)):
+        if not isinstance(want, torch.Tensor) and \
+                tuple(arr.shape) != tuple(np.shape(want)):
             raise ValueError(f"shape mismatch at {key}: "
                              f"{arr.shape} vs {tuple(np.shape(want))}")
-        leaves[key] = _from_numpy(arr, info["dtype"], want)
+        leaves[key] = _from_numpy(arr, info["dtype"], want, shard, key)
     return _unflatten(like_tree, leaves), manifest
 
 
-def restore_latest(ckpt_dir: str, like_tree) -> Optional[Tuple[Any, dict]]:
-    """Restore the newest valid checkpoint (fall back past corrupt ones)."""
+def restore_latest(ckpt_dir: str, like_tree,
+                   shard=None) -> Optional[Tuple[Any, dict]]:
+    """Restore the newest valid checkpoint (fall back past corrupt ones).
+    ``shard(key, whole)``: the part of a whole tensor leaf this rank
+    keeps (its slice of a weight sliced over "data"), applied to each
+    leaf as it is read; the result must have the like-tree leaf's
+    shape."""
     root = Path(ckpt_dir)
     if not root.exists():
         return None
@@ -165,7 +211,7 @@ def restore_latest(ckpt_dir: str, like_tree) -> Optional[Tuple[Any, dict]]:
                    reverse=True)
     for path in ckpts:
         try:
-            return _load_dir(path, like_tree)
+            return _load_dir(path, like_tree, shard)
         except Exception as e:  # noqa: BLE001 — corrupt ckpt: fall back
             print(f"[checkpoint] {path.name} unusable ({e}); falling back")
     return None

@@ -10,11 +10,18 @@ in the parameters' order. It is not ``torch.optim.AdamW``, which decays
 every tensor: here only those ``decay`` marks (by default the tensors of
 two or more dimensions, the JAX package's rule; a model passes its own
 ``decay_mask``). The update runs one parameter at a time, so the float32
-temporaries are one parameter's size, not the model's. Under a "model"
-axis (``split``: the model's ``model_split()``) the global norm adds the
-split parameters' squares over the model ranks (``parallel/ops.
-model_sum``, rank order) to the replicated ones', so every rank clips by
-the whole model's norm and with the same bits.
+temporaries are one parameter's size, not the model's. Under a mesh
+(``split``: the model's ``split_axes()``) the global norm sums each
+slice's squares, then sums them over the ranks that split them, in
+rank order: over the data axis (``parallel/ops.data_sum``) for the
+parameters sliced over "data", then over the model axis
+(``model_sum``) for those split over "model", and adds the whole
+parameters' once; so every rank clips by the whole model's norm with
+the same bits. The order of the float32 additions is not the one
+process's, so the norm is that one's within float32 rounding (a
+relative 1e-6 at the zoo's smoke sizes), not its bits. m and v are
+built over the parameters a rank holds, so under FSDP they are its
+slices, and the update, elementwise, runs on them.
 """
 from __future__ import annotations
 
@@ -71,22 +78,27 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
+def _add(a, b):
+    return b if a is None else (a if b is None else a + b)
+
+
 def global_norm(tree: Mapping[str, torch.Tensor],
-                split: Optional[Mapping[str, bool]] = None) -> torch.Tensor:
+                split: Optional[Mapping[str, tuple]] = None) -> torch.Tensor:
     """sqrt of the sum of every entry's square, float32, the leaves'
-    sums added in the tree's order. ``split``: the leaves split over the
-    installed model axis, whose sum is summed over its ranks and added
-    to the others'."""
-    total = part = None
+    sums added in the tree's order. ``split``: the installed mesh's axes
+    that split each leaf (``Transformer.split_axes``); a split leaf's sum
+    is summed over the ranks of its axes and added to the whole ones'."""
+    sums: Dict[tuple, torch.Tensor] = {}
     for n, g in tree.items():
-        s = g.float().square().sum()
-        if split is not None and split[n]:
-            part = s if part is None else part + s
-        else:
-            total = s if total is None else total + s
-    if part is not None:
-        part = pops.model_sum(part)
-        total = part if total is None else total + part
+        axes = tuple(split[n]) if split is not None else ()
+        sums[axes] = _add(sums.get(axes), g.float().square().sum())
+    total = sums.get(())
+    model = _add(sums.get(("model",)), pops.data_sum(sums[("data", "model")])
+                 if ("data", "model") in sums else None)
+    if model is not None:
+        total = _add(total, pops.model_sum(model))
+    if ("data",) in sums:
+        total = _add(total, pops.data_sum(sums[("data",)]))
     if total is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(total)
@@ -100,8 +112,8 @@ def apply_updates(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     """One AdamW step, in place: each parameter and its m and v are
     overwritten. Returns (params, the new state, metrics ``grad_norm``
     and ``lr``). ``decay``: which parameters take the decoupled decay
-    (default: those of two or more dimensions); ``split``: which are
-    split over the installed model axis (``global_norm``)."""
+    (default: those of two or more dimensions); ``split``: the axes that
+    split each over the installed mesh (``global_norm``)."""
     step = state.step + 1
     gn = global_norm(grads, split)
     dev = gn.device

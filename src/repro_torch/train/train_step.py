@@ -13,24 +13,34 @@ scatter with float atomics unless PyTorch's deterministic algorithms
 are on, and a resumed run must repeat an uninterrupted one bit for bit.
 
 Data parallelism (``make_train_step(..., mesh=...)`` with a mesh of
-``launch/mesh.make_local_mesh`` over the ranks of ``torch.distributed``):
-each rank takes its rows of the global batch (``shard_batch``), runs the
-JAX package's program for them under ``parallel/ops.use_mesh`` (its MoE
-dispatch one group of the rank's tokens; the loss's means and the router
-statistics summed over the ranks, so each rank's gradient is its share
-of the global one), and the ranks' gradients are summed in a fixed order
-(``sum_gradients``): all-gathered in buckets and added rank 0 first in
-float32, so every rank holds the same bits whatever the collective's
-reduction tree, and clipping and AdamW then update every rank alike.
+``launch/mesh.make_local_mesh`` over the ranks of ``torch.distributed``,
+and the model built for the rank: ``transformer.init_model(...,
+mesh=...)``): FSDP over "data", the JAX package's placement. Each rank
+holds its slice of every weight with an "embed" dim, and of AdamW's m
+and v; it takes its rows of the global batch (``shard_batch``) and runs
+the JAX package's program for them under ``parallel/ops.use_mesh`` (its
+MoE dispatch one group of the rank's tokens; the loss's means and the
+router statistics summed over the ranks, so each rank's gradient is its
+share of the global one), gathering each block's weights in rank order
+where the block runs (again in a rematerialised block's backward). The
+backward reduce-scatters the gradient of each sliced weight to the
+rank's slice, and the gradients of the weights every rank holds whole
+are summed by ``sum_gradients``; both add the ranks' float32 gradients
+rank 0 first, so every rank holds the same bits whatever the
+collective's reduction tree (a slice the bits of ``sum_gradients``'
+sum of the whole), and clipping and AdamW then update each slice as one
+process's update of the whole would. A model built without the mesh
+(every weight whole) runs the same step with every gradient summed by
+``sum_gradients``.
 
-The "model" axis (a mesh of ``make_local_mesh(device, model=m)``, with
-the model built for the rank: ``transformer.init_model(..., mesh=...)``):
-the rank takes the rows of its data coordinate, runs its slice of the
-model under the mesh (the model axis's collectives inside the model),
-sums its gradients over its data group only, and AdamW clips by the
-whole model's norm (``optimizer.global_norm`` over the model's
-``model_split()``). The prefill and decode steps run under the mesh too,
-on the rows of the rank's data coordinate.
+The "model" axis (a mesh of ``make_local_mesh(device, model=m)``): the
+rank takes the rows of its data coordinate, runs its slice of the model
+under the mesh (the model axis's collectives inside the model), reduces
+its gradients over its data group only, and AdamW clips by the whole
+model's norm (``optimizer.global_norm`` over the model's
+``split_axes()``). The prefill and decode steps run under the mesh too,
+on the rows of the rank's data coordinate, the weights gathered a block
+at a time.
 """
 from __future__ import annotations
 
@@ -168,7 +178,8 @@ def loss_and_grads(model, batch, mesh=None):
     """The loss of ``batch`` and every parameter's gradient (a dict in
     ``named_parameters`` order, zeros for a parameter the loss does not
     reach). With a mesh over processes: this rank's rows, the global
-    loss, and the gradients summed over the ranks."""
+    loss, and the gradients summed over the ranks (a sliced weight's,
+    this rank's slice of the sum)."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
@@ -181,7 +192,9 @@ def loss_and_grads(model, batch, mesh=None):
     for p in params.values():
         p.grad = None
     if mesh is not None and mesh.group is not None:
-        sum_gradients(grads, mesh.group)
+        # a sliced weight's gradient was reduce-scattered in the backward
+        sum_gradients({n: g for n, g in grads.items()
+                       if n not in model.data_dims}, mesh.group)
     return loss.detach(), grads
 
 
@@ -202,8 +215,7 @@ def make_train_step(cfg, opt_cfg: opt.AdamWConfig, mesh=None):
         with _mesh(mesh):
             _, opt_state, metrics = opt.apply_updates(
                 opt_cfg, dict(model.named_parameters()), grads, opt_state,
-                decay=model.decay_mask(),
-                split=model.model_split() if model.tp else None)
+                decay=model.decay_mask(), split=model.split_axes())
         del grads
         return model, opt_state, dict(metrics, loss=loss)
     return train_step

@@ -7,16 +7,29 @@
 as torchrun sets them; the job file names the mode and its files. Modes:
 
   * ``steps``: join a gloo group through the job's ``file://`` store (60
-    s timeout), load the parameters the test saved into the smoke model,
-    then write to ``out`` (``{rank}`` filled in): the loss and every gradient of the global
-    batch's first step (``train_step.loss_and_grads``: this rank's rows,
-    the gradients summed over the ranks), and each loss and every
-    parameter after ``steps`` AdamW steps of ``make_train_step`` on the
-    same batch;
+    s timeout), build the rank's slice of the smoke model
+    (``init_model(..., mesh=make_local_mesh("cpu"))``: FSDP over "data")
+    and load its slices of the parameters the test saved, then write to
+    ``out`` (``{rank}`` filled in): which dim each parameter is sliced
+    on (``data_dims``), the loss and every gradient of the global batch's
+    first step (``train_step.loss_and_grads``: this rank's rows, its
+    slices of the gradients), the same step's gradients of the whole
+    model (every weight on every rank) summed by ``sum_gradients`` and
+    cut to this rank's slices (``ref_grads``), each loss, gradient norm
+    and learning rate of ``steps`` AdamW steps of ``make_train_step`` on
+    the same batch, every parameter after them (this rank's slices,
+    ``params``, and the whole ones gathered in rank order,
+    ``gathered``);
   * ``launch``: run ``repro_torch.launch.train`` with the job's
     arguments (it sets up the group from the environment), sending
     itself SIGTERM after step ``sigterm_after`` if this is rank
-    ``sigterm_rank``; writes ``run()``'s result to ``out``.
+    ``sigterm_rank``; writes ``run()``'s result to ``out``;
+  * ``serve``: the rank's slice of the served smoke model from seed 0,
+    the prefill step (rings of ``cache_len`` rows) of the job's
+    ``tokens`` (this rank's rows of them) and one decode step a tick of
+    ``ticks``; writes each step's logits;
+  * ``dryrun``: ``launch/dryrun.execute_cell`` of the job's cut as one
+    rank of a data axis of the world's size; writes its result.
 
 Runs on the CPU with one torch thread; imports neither JAX nor the JAX
 package. ``spawn`` runs a group of ranks for a test.
@@ -68,38 +81,103 @@ def steps_mode(job):
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import transformer as tf
+    from repro_torch.parallel import ops as pops
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as steps
 
-    dist.init_process_group(
-        "gloo", init_method=job["init"], rank=int(os.environ["RANK"]),
-        world_size=int(os.environ["WORLD_SIZE"]),
-        timeout=timedelta(seconds=60))
+    _group(job)
     try:
         cfg = get_smoke_config(job["arch"]).scaled(remat=job["remat"])
-        model = tf.init_model(cfg, torch.Generator().manual_seed(0), "cpu",
-                              trainable=True)
-        saved = torch.load(job["params"])
-        with torch.no_grad():
-            for n, p in model.named_parameters():
-                p.copy_(saved[n])
-        batch = {k: v.numpy() for k, v in torch.load(job["batch"]).items()}
         mesh = make_local_mesh("cpu")
         assert mesh.processes == dist.get_world_size()
+        saved = torch.load(job["params"])
+        batch = {k: v.numpy() for k, v in torch.load(job["batch"]).items()}
+
+        def built(mesh):
+            model = tf.init_model(cfg, torch.Generator().manual_seed(0),
+                                  "cpu", trainable=True, mesh=mesh)
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(model.slice_of(n, saved[n]))
+            return model
+
+        model = built(mesh)
         loss, grads = steps.loss_and_grads(model, batch, mesh)
         out = {"loss": loss, "grads": {n: g.clone() for n, g in
-                                       grads.items()}, "losses": []}
+                                       grads.items()},
+               "data_dims": dict(model.data_dims), "metrics": []}
         del grads
+        _, ref = steps.loss_and_grads(built(None), batch, mesh)
+        out["ref_grads"] = {n: model.slice_of(n, g).clone()
+                            for n, g in ref.items()}
+        del ref
         ocfg = opt.AdamWConfig(**job["opt"])
         state = opt.init_opt_state(dict(model.named_parameters()))
         step = steps.make_train_step(cfg, ocfg, mesh=mesh)
         with steps.deterministic():
             for _ in range(job["steps"]):
                 model, state, met = step(model, state, batch)
-                out["losses"].append(met["loss"])
+                out["metrics"].append(met)
+        out["losses"] = [m["loss"] for m in out["metrics"]]
         out["params"] = {n: p.detach().clone()
                          for n, p in model.named_parameters()}
+        out["gathered"] = {
+            n: torch.cat(pops.all_parts(p.detach(), mesh.group),
+                         dim=model.data_dims[n])
+            if n in model.data_dims else p.detach().clone()
+            for n, p in model.named_parameters()}
         torch.save(out, job["out"].format(rank=dist.get_rank()))
+    finally:
+        dist.destroy_process_group()
+
+
+def _group(job):
+    dist.init_process_group(
+        "gloo", init_method=job["init"], rank=int(os.environ["RANK"]),
+        world_size=int(os.environ["WORLD_SIZE"]),
+        timeout=timedelta(seconds=60))
+
+
+def serve_mode(job):
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import train_step as steps
+
+    _group(job)
+    try:
+        cfg = get_smoke_config(job["arch"])
+        mesh = make_local_mesh("cpu")
+        model = tf.init_model(cfg, torch.Generator().manual_seed(0), "cpu",
+                              mesh=mesh)
+        data = torch.load(job["data"])
+        prefill = steps.make_prefill_step(cfg, mesh, job["cache_len"])
+        decode = steps.make_decode_step(cfg, mesh)
+        logits, caches = prefill(model, {"tokens": data["tokens"]})
+        out = {"prefill": logits, "ticks": [],
+               "data_dims": dict(model.data_dims)}
+        pos = torch.full((data["tokens"].shape[0],),
+                         data["tokens"].shape[1], dtype=torch.int32)
+        for t in data["ticks"]:
+            logits, caches = decode(model, caches, {"tokens": t, "pos": pos})
+            out["ticks"].append(logits)
+            pos = pos + 1
+        torch.save(out, job["out"].format(rank=dist.get_rank()))
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_mode(job):
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import dryrun
+
+    _group(job)
+    try:
+        r = dryrun.execute_cell(job["arch"], job["shape"], "cpu",
+                                cfg=get_smoke_config(job["arch"]),
+                                batch=job["batch"], seq=job["seq"],
+                                data=dist.get_world_size())
+        torch.save(r, job["out"].format(rank=dist.get_rank()))
     finally:
         dist.destroy_process_group()
 
@@ -122,7 +200,8 @@ def launch_mode(job):
 def main():
     torch.set_num_threads(1)
     job = json.loads(Path(sys.argv[1]).read_text())
-    {"steps": steps_mode, "launch": launch_mode}[job["mode"]](job)
+    {"steps": steps_mode, "launch": launch_mode, "serve": serve_mode,
+     "dryrun": dryrun_mode}[job["mode"]](job)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,9 @@ mesh=mesh)``). Then, each when the job asks for it:
 
   * ``grads``: the global batch's loss and every gradient
     (``train_step.loss_and_grads``: this rank's data rows, its slice of
-    the model), the parameters' ``model_split()`` and the top-k experts
-    each MoE layer routed;
+    the model: its model shard's slice over "data" where the data axis
+    is over 2 ranks), the parameters' ``split_axes()`` and
+    ``data_dims`` and the top-k experts each MoE layer routed;
   * ``steps``: that many AdamW steps of ``make_train_step(..., mesh)``,
     each loss, and every parameter after them;
   * ``decode``: a served model of the same slice: the prefill step's
@@ -102,7 +103,8 @@ def main():
             loss, grads = steps.loss_and_grads(model, batch, mesh)
             out.update(loss=loss, grads={n: g.clone()
                                          for n, g in grads.items()},
-                       split=model.model_split(), routes=list(routes),
+                       split=model.split_axes(),
+                       data_dims=dict(model.data_dims), routes=list(routes),
                        fallbacks=model.sharding_fallbacks())
             del grads
         if job.get("steps"):

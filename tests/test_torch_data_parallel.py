@@ -4,18 +4,28 @@ the JAX package's program on the global batch.
 Two gloo ranks (spawned as processes, ``tests/_torch_dp_worker.py``,
 joined through a ``file://`` store under the test's directory with a 60
 s timeout, each process under a time limit) train a smoke config on
-their rows of a global batch. The JAX package's reference is its train
-step on the whole batch with ``repro.models.moe.data_group_count``
-patched to 2, the program its dry run installs over 2 data shards (the
-MoE dispatch routes each shard's tokens as one group). Checked:
+their rows of a global batch, each holding its slices of the weights
+and AdamW moments (FSDP over "data", the JAX placement). The JAX
+package's reference is its train step on the whole batch with
+``repro.models.moe.data_group_count`` patched to 2, the program its dry
+run installs over 2 data shards (the MoE dispatch routes each shard's
+tokens as one group); a placement does not change the JAX program.
+Checked (``check_fsdp_ranks_match_jax``, which
+``tests/test_torch_fsdp.py`` runs for more configs):
 
-  * the first step's loss within 1e-5 and every gradient within 1e-4
-    (relative to the JAX gradient's largest entry) of the JAX package's,
-    and three AdamW steps at lr 1e-4 within 1e-5 (the limits of
+  * the first step's loss within 1e-5 and every gradient (the ranks'
+    slices joined in rank order) within 1e-4 (relative to the JAX
+    gradient's largest entry) of the JAX package's, and three AdamW
+    steps at lr 1e-4 within 1e-5 (the limits of
     ``tests/test_torch_train.py``), for granite-moe-3b-a800m (MoE, its
-    aux losses over the ranks; each block rematerialised, so the ranks'
-    gathers run again in the backward) and h2o-danube-1.8b (dense);
-  * the two ranks' losses, gradients and parameters bit for bit equal;
+    aux losses over the ranks; each block rematerialised, so its weights
+    are gathered again in the backward) and h2o-danube-1.8b (dense);
+  * each rank's gradient slices bit for bit the slices of the same
+    step's whole-model gradients summed by ``sum_gradients``;
+  * the two ranks' replicated scalars (the losses, gradient norms and
+    learning rates) and their whole gradients bit for bit equal, and the
+    parameters gathered in rank order after the steps bit for bit equal
+    on both ranks (and the ranks' slices joined);
   * a 1-rank group through the same path: the plain trainer's bits.
 
 ``tests/test_torch_dp_launch.py`` holds the launcher at world size 2.
@@ -80,39 +90,65 @@ def _jax_reference(case, groups, monkeypatch):
     return float(loss), grads, losses, jparams
 
 
-@pytest.mark.parametrize("arch,remat", [("granite-moe-3b-a800m", True),
-                                        ("h2o-danube-1.8b", False)])
-def test_two_ranks_match_jax_on_the_global_batch(arch, remat, tmp_path,
-                                                 monkeypatch):
+def joined(ranks, key: str, name: str) -> torch.Tensor:
+    """The ranks' slices of parameter ``name``'s ``key`` tree (grads or
+    params) joined in rank order on its sliced dim; the first rank's
+    where the parameter is whole."""
+    d = ranks[0]["data_dims"].get(name)
+    if d is None:
+        return ranks[0][key][name]
+    return torch.cat([r[key][name] for r in ranks], dim=d)
+
+
+def check_fsdp_ranks_match_jax(arch, remat, tmp_path, monkeypatch):
     case = make_case(arch)
     _, _, cfg, params, batch, _ = case
     assert ARCHS[arch][0] % 2 == 0
     model = _model(cfg, params)
     job = _steps_job(tmp_path, arch, dict(model.named_parameters()), batch,
                      remat)
-    r0, r1 = spawn(tmp_path, 2, job)
-    # the ranks agree bit for bit
+    ranks = spawn(tmp_path, 2, job)
+    r0, r1 = ranks
+    dims = r0["data_dims"]
+    assert dims and dims == r1["data_dims"]
+    # each rank's slices: the slices of sum_gradients' sum of the whole
+    for r in ranks:
+        for n, g in r["grads"].items():
+            assert torch.equal(g, r["ref_grads"][n]), n
+    # the ranks agree bit for bit on every replicated scalar and tensor
     assert torch.equal(r0["loss"], r1["loss"])
     for n in r0["grads"]:
-        assert torch.equal(r0["grads"][n], r1["grads"][n]), n
-    for a, b in zip(r0["losses"], r1["losses"]):
-        assert torch.equal(a, b)
+        if n not in dims:
+            assert torch.equal(r0["grads"][n], r1["grads"][n]), n
+    for a, b in zip(r0["metrics"], r1["metrics"]):
+        assert a.keys() == b.keys() == {"loss", "grad_norm", "lr"}
+        assert all(torch.equal(a[k], b[k]) for k in a)
     for n in r0["params"]:
-        assert torch.equal(r0["params"][n], r1["params"][n]), n
+        assert torch.equal(r0["gathered"][n], r1["gathered"][n]), n
+        assert torch.equal(r0["gathered"][n], joined(ranks, "params", n)), n
     # and hold the JAX package's program on the global batch
     jloss, jgrads, jlosses, jparams = _jax_reference(case, 2, monkeypatch)
     assert abs(float(r0["loss"]) - jloss) <= LOSS_TOL, (arch, jloss)
     assert len(r0["grads"]) == len(list(model.parameters()))
-    for name, g in r0["grads"].items():
+    for name in r0["grads"]:
+        g = joined(ranks, "grads", name)
         want = jax_leaf(jgrads, name, cfg)
+        assert g.shape == want.shape, name
         scale = max(float(np.abs(want).max()), 1e-30)
         err = float(np.abs(g.numpy() - want).max()) / scale
         assert err <= GRAD_TOL, (arch, name, err)
     for got, want in zip(r0["losses"], jlosses):
         assert abs(float(got) - want) <= LOSS_TOL
-    for name, p in r0["params"].items():
+    for name, p in r0["gathered"].items():
         err = float(np.abs(p.numpy() - jax_leaf(jparams, name, cfg)).max())
         assert err <= PARAM_TOL, (arch, name, err)
+
+
+@pytest.mark.parametrize("arch,remat", [("granite-moe-3b-a800m", True),
+                                        ("h2o-danube-1.8b", False)])
+def test_two_ranks_match_jax_on_the_global_batch(arch, remat, tmp_path,
+                                                 monkeypatch):
+    check_fsdp_ranks_match_jax(arch, remat, tmp_path, monkeypatch)
 
 
 def test_one_rank_is_the_plain_trainer_bit_for_bit(tmp_path):

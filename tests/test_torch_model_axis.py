@@ -31,11 +31,13 @@ the row) within 2e-5 of the JAX package's prefill and ``decode_step``;
 no differing route against the port's one-process model; and every
 tensor replicated over "model" (the loss, each replicated gradient, the
 logits) with the same bits on both ranks. And
-one training step of data 2 x model 2 (4 ranks) against the JAX train
+one training step of data 2 x model 2 (4 ranks, FSDP over "data": each
+rank holds its model shard's slice over "data") against the JAX train
 step on the global batch with 2 MoE groups (the program of
 ``tests/test_torch_data_parallel.py``): loss, gradients, and the
-parameters after an AdamW step, every rank's replicated parameters with
-the same bits as its model group's and its data group's.
+parameters after an AdamW step (the slices joined over "data", then the
+shards over "model"), every rank's replicated parameters with the same
+bits as its model group's and its data group's.
 """
 import functools
 import pickle
@@ -216,8 +218,8 @@ def check_two_model_ranks_match_jax(arch, tmp_path, monkeypatch):
                                     "count": 2, "dims": [255]}]
     # replicated over "model": the same bits on both ranks
     assert torch.equal(r0["loss"], ranks[1]["loss"])
-    for name, split in r0["split"].items():
-        if not split:
+    for name, axes in r0["split"].items():
+        if "model" not in axes:
             assert torch.equal(r0["grads"][name], ranks[1]["grads"][name]), \
                 name
     for a, b in zip([r0["prefill"]] + r0["ticks"],
@@ -268,24 +270,30 @@ def check_data_two_by_model_two_train_step_matches_jax(tmp_path,
         params, jgrads, jopt.init_opt_state(params))
     assert all(torch.equal(r["loss"], ranks[0]["loss"]) for r in ranks)
     assert abs(float(ranks[0]["loss"]) - float(jloss)) <= LOSS_TOL
-    split = ranks[0]["split"]
+    split, dims = ranks[0]["split"], ranks[0]["data_dims"]
+    assert dims and all(r["data_dims"] == dims for r in ranks)
+
+    def over_data(key, name, c):
+        """Model rank c's tensor: its data ranks' slices joined in rank
+        order; where it is whole over "data", the data ranks hold the
+        same bits."""
+        a, b = ranks[c][key][name], ranks[2 + c][key][name]
+        if name in dims:
+            return torch.cat([a, b], dim=dims[name])
+        assert torch.equal(a, b), (key, name)
+        return a
+
     for name in ranks[0]["grads"]:
-        # the data ranks hold the same sums; a model group joins its shards
-        for c in (0, 1):
-            assert torch.equal(ranks[c]["grads"][name],
-                               ranks[2 + c]["grads"][name]), name
-            assert torch.equal(ranks[c]["params"][name],
-                               ranks[2 + c]["params"][name]), name
-        if not split[name]:
-            assert torch.equal(ranks[0]["params"][name],
-                               ranks[1]["params"][name]), name
+        # a data group joins its slices; a model group joins its shards
+        grads = [over_data("grads", name, c) for c in (0, 1)]
+        params = [over_data("params", name, c) for c in (0, 1)]
+        if "model" not in split[name]:
+            assert torch.equal(params[0], params[1]), name
         want = jax_full(jgrads, name, cfg)
-        got = joined(name, [ranks[c]["grads"][name] for c in (0, 1)],
-                     want.shape)
+        got = joined(name, grads, want.shape)
         assert _rel(got, want) <= GRAD_TOL, (name, _rel(got, want))
         wantp = jax_full(jparams, name, cfg)
-        gotp = joined(name, [ranks[c]["params"][name] for c in (0, 1)],
-                      wantp.shape)
+        gotp = joined(name, params, wantp.shape)
         err = float(np.abs(gotp.numpy() - wantp).max())
         assert err <= PARAM_TOL, (name, err)
 

@@ -158,7 +158,7 @@ def test_scoring_mesh():
         assert make_scoring_mesh() is None       # one card or none
     with pops.use_mesh(mesh, shd.default_rules(mesh)):
         assert pops.data_group_count() == 4 == pops.local_group_count()
-        assert pops.data_process_group() is None
+        assert pops.data_ranks() == 1 == pops.data_slices()
     assert pops.data_group_count() == 1
 
 
