@@ -74,7 +74,15 @@ global batch with 2 MoE groups, each rank's gradient slices bit for bit
 ranks' gathered parameters and scalars bit for bit equal after each and
 each rank's peak memory, a step of the whole model on every rank beside
 them, and one rank through the same path bit for bit the plain trainer;
-then the "model" axis on 2 gloo ranks. Then the dry run
+then the "model" axis on 2 gloo ranks; then a batch of 1 over data 2 x
+model 2 (4 gloo ranks on the card, each holding a quarter of every
+attention ring, data major, as the JAX placement spreads ``long_500k``):
+gemma3-12b's period at full width in float32 (a 4096-token prompt into
+a 524,288-row ring, every row refilled, 4 ticks across the ring's end)
+against one process, the ranks' logits bit for bit equal, and the dry
+run's long-context cut in bf16 on each rank; decode attention's slices
+at gemma3-12b's heads (131,072 of 524,288 rows; 4 of a 1,024-row
+window) against their plain version. Then the dry run
 (``repro_torch.launch.dryrun``): one cell of each kind counted on
 PyTorch's ``meta`` device on the ``card``, ``node`` and ``pod`` meshes,
 the ``pod`` and ``multipod`` placements of every cell, three cells
@@ -82,7 +90,8 @@ executed on the card (h2o-danube-1.8b's 32k prefill at batch 1 and its
 decode tick at batch 8, granite-moe-3b-a800m's 4k training step cut to
 2 layers at batch 4), each counted on the card exactly as on ``meta``
 and timed against its roofline terms (a share above 1 fails), and the
-model-axis and FSDP cuts executed on 2 gloo ranks, each rank's count,
+model-axis, long-context and FSDP cuts executed on gloo ranks, each
+rank's count,
 collectives included, that of one device on ``meta``. It prints the
 results, the card's own wall-clock numbers, one JSON line with every
 kernel, and as its last line
@@ -1368,14 +1377,71 @@ def lm_kernel_phase(device, arch: str = LM_ARCH, rms_shapes=RMS_SHAPES,
     return rows
 
 
+def _slice_row(device, q, k, v, tpos, r0, S, dt, label) -> dict:
+    """Decode attention over rows ``r0 .. r0 + k.shape[1] - 1`` of rings
+    of ``S`` with each head's log-sum-exp, against its plain version,
+    timed beside it and SDPA over the slice with its row mask; the row of
+    the ``kernels`` line at ``label``."""
+    H, S_l = q.shape[1], k.shape[1]
+    pos = tpos.long().cpu().numpy()
+    n_valid = np.where(pos >= S, S_l, np.clip(pos + 1 - r0, 0, S_l))
+    got, lse = da.decode_attention(q, k, v, tpos, row0=r0, rows=S, lse=True)
+    want, wlse = ref.decode_attention(q, k, v, tpos, row0=r0, rows=S,
+                                      lse=True)
+    err = float((got.float() - want.float()).abs().max())
+    # bf16's error is its output's rounding, relative to the output, which
+    # over a long slice is an average of many rows and small; float32's is
+    # the sum's, on the scale of v (1). Either way far below the output,
+    # so that zeros, or v summed from the wrong rows, fail.
+    scale = float(want.float().abs().max())
+    tol = LM_TOL[dt] * (scale if dt == torch.bfloat16 else 1.0)
+    check(tol <= 0.1 * scale, f"decode slice {label}: a tolerance of {tol} "
+          f"would pass a zero output (max |want| {scale})")
+    empty = torch.isinf(wlse)
+    check(torch.equal(torch.isinf(lse), empty),
+          f"decode slice {label}: the empty slots' log-sum-exp differ")
+    lse_err = float((lse[~empty] - wlse[~empty]).abs().max())
+    lse_scale = max(1.0, float(wlse[~empty].abs().max()))
+    print(f"decode slice {label}: output max |err| {err:.3e} (tolerance "
+          f"{tol:.3e}, max |want| {scale:.3e}), log-sum-exp max |err| "
+          f"{lse_err:.3e} (max |lse| {lse_scale:.3f})", flush=True)
+    check(math.isfinite(err) and err <= tol and
+          lse_err <= LSE_TOL * lse_scale,
+          f"decode slice {label}: max |err| {err} (tolerance {tol}), lse "
+          f"{lse_err}")
+    del got, want
+    qt = q[:, :, None]
+    kt = ref.expand_kv(k, H).transpose(1, 2)
+    vt = ref.expand_kv(v, H).transpose(1, 2)
+    r = torch.arange(S_l, device=device)[None, :] + r0
+    valid = ((r <= tpos[:, None].long()) |
+             (tpos[:, None].long() >= S))[:, None, None, :]
+    t = _in_turns(lambda: da.decode_attention(q, k, v, tpos, row0=r0,
+                                              rows=S, lse=True),
+                  lambda: ref.decode_attention(q, k, v, tpos, row0=r0,
+                                               rows=S, lse=True),
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, attn_mask=valid),
+                  iters=10 if S_l > 8192 else 50)
+    bound, by = _bound(*da.cost(q.shape, k.shape, dt,
+                                n_valid=int(n_valid.sum()), lse=True), dt)
+    return _row("decode_attention slice", label, err, t, bound, by)
+
+
 def decode_slice_phase(device) -> dict:
-    """Decode attention over a slice of each ring, the model axis's tick
-    (``models/attention.py``): rows S/2 .. S-1 of h2o-danube-1.8b's 8
-    rings of 4096 (the slots' positions as ``lm_kernel_phase``'s, so some
-    slots have no valid row in the slice), with each head's log-sum-exp,
-    against its plain version, timed beside it and SDPA over the slice
-    with its row mask. And the whole ring with a log-sum-exp asked: its
-    output must be the same bits as without one."""
+    """Decode attention over a slice of each ring, the tick of a cache
+    axis (``models/attention.py``): rows S/2 .. S-1 of h2o-danube-1.8b's
+    8 rings of 4096 (the slots' positions as ``lm_kernel_phase``'s, so
+    some slots have no valid row in the slice), and the whole ring with a
+    log-sum-exp asked, whose output must be the same bits as without
+    one; then at gemma3-12b's heads (16 on 8 of dim 256, one slot) a
+    rank's slices of ``long_500k`` (``CX_SLICES``): 131,072 of 524,288
+    global rows (data 2 x model 2) in bf16 with the position inside the
+    slice and in float32 past the ring's end, 256 of a 1,024-row window,
+    and 4 of it (the 256 ranks of a pod, shorter than the kernel's
+    64-row tile) with the position inside. Each slice held to its plain
+    version and
+    timed beside it and SDPA over the slice with its row mask."""
     cfg = get_config(LM_ARCH)
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B, S = 8, 4096
@@ -1383,56 +1449,37 @@ def decode_slice_phase(device) -> dict:
     pos = np.random.default_rng(0).integers(0, S, size=B)
     pos[-1] = S + 904
     tpos = torch.tensor(pos, dtype=torch.int32, device=device)
-    n_valid = np.where(pos >= S, S - r0, np.clip(pos + 1 - r0, 0, S - r0))
     rows = {}
     for dt in (torch.bfloat16, torch.float32):
         q = _randn((B, H, D), dt, device, 7)
         k = _randn((B, S, KV, D), dt, device, 8)
         v = _randn((B, S, KV, D), dt, device, 9)
         ks, vs = k[:, r0:].contiguous(), v[:, r0:].contiguous()
-        got, lse = da.decode_attention(q, ks, vs, tpos, row0=r0, rows=S,
-                                       lse=True)
-        want, wlse = ref.decode_attention(q, ks, vs, tpos, row0=r0, rows=S,
-                                          lse=True)
-        err = float((got.float() - want.float()).abs().max())
-        empty = torch.isinf(wlse)
-        check(torch.equal(torch.isinf(lse), empty),
-              f"decode slice {dt}: the empty slots' log-sum-exp differ")
-        lse_err = float((lse[~empty] - wlse[~empty]).abs().max())
-        lse_scale = max(1.0, float(wlse[~empty].abs().max()))
-        print(f"decode slice {str(dt)[6:]}: output max |err| {err:.3e}, "
-              f"log-sum-exp max |err| {lse_err:.3e} (max |lse| "
-              f"{lse_scale:.3f})", flush=True)
-        check(math.isfinite(err) and err <= LM_TOL[dt] and
-              lse_err <= LSE_TOL * lse_scale,
-              f"decode slice {dt}: max |err| {err}, lse {lse_err}")
+        empty = int((np.where(pos >= S, S - r0, pos + 1 - r0) <= 0).sum())
+        label = (f"B=8 rows {r0}..{S - 1} of S=4096 pos {pos.tolist()} "
+                 f"(empty slots {empty}) {str(dt)[6:]}")
+        row = _slice_row(device, q, ks, vs, tpos, r0, S, dt, label)
         # the whole ring: asking for the log-sum-exp keeps the output's bits
         whole = da.decode_attention(q, k, v, tpos)
         same = torch.equal(da.decode_attention(q, k, v, tpos, lse=True)[0],
                            whole)
         check(same, f"decode slice {dt}: the output with a log-sum-exp "
               "differs from the output without one")
-        qt = q[:, :, None]
-        kt = ref.expand_kv(ks, H).transpose(1, 2)
-        vt = ref.expand_kv(vs, H).transpose(1, 2)
-        r = torch.arange(S - r0, device=device)[None, :] + r0
-        valid = ((r <= tpos[:, None].long()) |
-                 (tpos[:, None].long() >= S))[:, None, None, :]
-        t = _in_turns(lambda: da.decode_attention(q, ks, vs, tpos, row0=r0,
-                                                  rows=S, lse=True),
-                      lambda: ref.decode_attention(q, ks, vs, tpos, row0=r0,
-                                                   rows=S, lse=True),
-                      lambda: F.scaled_dot_product_attention(
-                          qt, kt, vt, attn_mask=valid), iters=50)
-        bound, by = _bound(*da.cost(q.shape, ks.shape, dt,
-                                    n_valid=int(n_valid.sum()), lse=True), dt)
-        label = (f"B=8 rows {r0}..{S - 1} of S=4096 pos {pos.tolist()} "
-                 f"(empty slots {int(empty[:, 0].sum())}) "
-                 f"{str(dt)[6:]}")
-        rows[("decode_attention_slice", label)] = _row(
-            "decode_attention slice", label, err, t, bound, by)
-        rows[("decode_attention_slice", label)]["lse_keeps_bits"] = same
-        del q, k, v, ks, vs, kt, vt
+        row["lse_keeps_bits"] = same
+        rows[("decode_attention_slice", label)] = row
+        del q, k, v, ks, vs, whole
+    cfg = get_config(CX_ARCH)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for sl in CX_SLICES:
+        r0, S_l, S, dt, p = sl
+        tpos = torch.tensor([p], dtype=torch.int32, device=device)
+        q = _randn((1, H, D), dt, device, 17)
+        k = _randn((1, S_l, KV, D), dt, device, 18)
+        v = _randn((1, S_l, KV, D), dt, device, 19)
+        label = cx_slice_label(sl)
+        rows[("decode_attention_slice", label)] = _slice_row(
+            device, q, k, v, tpos, r0, S, dt, label)
+        del q, k, v
     torch.cuda.empty_cache()
     return rows
 
@@ -2606,13 +2653,14 @@ def step_gap(got: dict, want: dict) -> dict:
 
 
 @contextlib.contextmanager
-def timed_collectives(sync):
+def timed_collectives(sync, spent=None):
     """Host seconds inside the data axis's collectives (FSDP's gathers
     and reduce-scatters, the loss's and router statistics' sums, the
-    gradient norm's: ``parallel/ops._parts``) and inside
-    ``sum_gradients``, each ending in a synchronise, appended to the
-    yielded list."""
-    spent, parts, summed = [], pops._parts, steps.sum_gradients
+    gradient norm's, the decode merge's: ``parallel/ops._parts``) and
+    inside ``sum_gradients``, each ending in a synchronise, appended to
+    the yielded list (``spent``, a new one by default)."""
+    spent = [] if spent is None else spent
+    parts, summed = pops._parts, steps.sum_gradients
 
     def timed(fn):
         def call(*args, **kwargs):
@@ -3288,6 +3336,266 @@ def model_axis_phase(device, smoke: bool = False) -> dict:
     return out
 
 
+# -- phase 9c: a batch of 1 over ("data", "model"): the attention caches'
+# sequence spread over every rank, as the JAX placement spreads long_500k
+
+CX_ARCH = "gemma3-12b"
+CX_DATA, CX_MODEL = 2, 2
+# float32 parity: the prompt's tokens, the global ring's rows (long_500k's
+# context), decode ticks, rows of a refill block (a rank's window rows)
+CX_PROMPT, CX_RING, CX_TICKS, CX_BLOCK = 4096, 524_288, 4, 256
+CX_SMOKE = (48, 64)            # the prompt and ring of a CPU rehearsal
+# the dry run's long-context cut: arch, shape, layers (one period), batch
+CX_DRYRUN = (CX_ARCH, "long_500k", 6, 1)
+# decode attention's slices at gemma3-12b's heads, B = 1: (first row,
+# rows, ring, type, position). Data 2 x model 2 holds a quarter of each
+# ring: the global ring's 131,072 rows (bf16 in the dry-run cut, float32
+# in the parity run) and a window's 256; a pod's 256 ranks hold 4 rows of
+# a window. A position inside a slice exercises its row mask.
+CX_SLICES = ((131_072, 131_072, 524_288, torch.bfloat16, 231_072),
+             (131_072, 131_072, 524_288, torch.float32, 524_291),
+             (256, 256, 1024, torch.bfloat16, 1027),
+             (4, 4, 1024, torch.bfloat16, 6))
+
+
+def cx_slice_label(sl) -> str:
+    """The label of a ``CX_SLICES`` slice's row at gemma3-12b's heads."""
+    r0, S_l, S, dt, p = sl
+    cfg = get_config(CX_ARCH)
+    return (f"B=1 rows {r0}..{r0 + S_l - 1} of S={S} {cfg.num_heads}/"
+            f"{cfg.num_kv_heads}x{cfg.resolved_head_dim} pos {p} "
+            f"{str(dt)[6:]}")
+
+
+def cx_config(smoke: bool, **overrides):
+    """gemma3-12b cut to one period (5 window layers, 1 global) at full
+    width (``smoke``: its smoke config)."""
+    return tp_config(CX_ARCH, smoke, num_layers=6, **overrides)
+
+
+def cx_refill(caches, n: int, i: int, device) -> None:
+    """Every attention ring's rows drawn anew: the ring of layer l in
+    blocks of ``CX_BLOCK`` rows (fewer where a rank of the 4 holds fewer),
+    block b's k then v from a generator on ``device`` seeded
+    l·2^20 + b. Rank i of a cache axis of n draws its own blocks, one
+    process (n = 1) every block: the same rows either way."""
+    for l, c in enumerate(caches):
+        if "k" not in c:
+            continue
+        rows = c["k"].shape[1]
+        blk = min(CX_BLOCK, rows * n // (CX_DATA * CX_MODEL))
+        for j in range(rows // blk):
+            g = torch.Generator(device=device).manual_seed(
+                (l << 20) + i * rows // blk + j)
+            for name in ("k", "v"):
+                part = c[name][:, j * blk:(j + 1) * blk]
+                part.copy_(torch.randn(part.shape, generator=g,
+                                       device=device))
+
+
+def cx_parity_run(device, mesh, smoke: bool = False) -> dict:
+    """gemma3-12b's period in float32 with unit scores (F3), this
+    process's model (a rank's of ``mesh``, or the whole with None), at a
+    batch of 1: the prefill step's last logits of a ``CX_PROMPT``-token
+    prompt into rings of ``CX_RING`` rows (only rank 0's rows of the
+    global ring hold positions then), every ring row refilled
+    (``cx_refill``), then ``CX_TICKS`` decode steps of seeded tokens
+    from the ring's last row, wrapping to its first; each step's logits,
+    the kernels' launches (counts set to 0 just before the prefill), the
+    cache rows and bytes, the prefill's and each tick's host seconds
+    (each ending in a synchronise) and the seconds inside the gathers."""
+    L, S = CX_SMOKE if smoke else (CX_PROMPT, CX_RING)
+    cfg = cx_config(smoke, compute_dtype="float32")
+    model = tp_built(device, cfg, mesh)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (1, L))
+    ticks = rng.integers(0, cfg.vocab_size, (CX_TICKS, 1, 1))
+    prefill = steps.make_prefill_step(cfg, mesh, S)
+    decode = steps.make_decode_step(cfg, mesh)
+    for k in (rms.rmsnorm, fa.flash_attention, da.decode_attention,
+              gmm.moe_gmm):
+        k.launches = 0
+    with timed_collectives(lambda: _sync(device)) as spent:
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, caches = prefill(model, {"tokens": tokens})
+        _sync(device)
+        out = {"prefill_s": time.perf_counter() - t0,
+               "prefill_gather_s": sum(spent), "tick_s": [],
+               "tick_gather_s": [], "logits": [logits.float().cpu()]}
+        n, i = pops.serve_placement(mesh, 1)[1]
+        cx_refill(caches, n, i, device)
+        _sync(device)
+        pos = torch.full((1,), S - 1, dtype=torch.int32)
+        for t in ticks:
+            spent.clear()
+            t0 = time.perf_counter()
+            logits, caches = decode(model, caches, {"tokens": t,
+                                                    "pos": pos})
+            _sync(device)
+            out["tick_s"].append(time.perf_counter() - t0)
+            out["tick_gather_s"].append(sum(spent))
+            out["logits"].append(logits.float().cpu())
+            pos = pos + 1
+    out["launches"] = lm_launches()
+    out["finite"] = all(bool(torch.isfinite(x).all()) for x in out["logits"])
+    out["cache_rows"] = [c["k"].shape[1] for c in caches if "k" in c]
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for c in caches for t in c.values())
+    del model, caches
+    free_memory()
+    return out
+
+
+def cx_worker(job: dict) -> int:
+    """One rank of ``context_phase`` (``chip_smoke.py --cx-worker JOB``):
+    a gloo group of ``CX_DATA`` x ``CX_MODEL`` ranks on the one card, the
+    mesh ``make_local_mesh(device, model=CX_MODEL)``; the float32 parity
+    run, then the dry run's long-context cut in bf16
+    (``dryrun.execute_cell(..., model=CX_MODEL, data=CX_DATA)``, its
+    ``ITERS`` ticks after ``WARMUP`` timed as every executed cell's) with
+    the seconds inside the gathers of those ticks, and the bf16 cache
+    bytes of a rank."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch.launch import dryrun
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device(job["device"] if job["device"] != "cuda"
+                          else "cuda:0")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=job["init"], rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=DP_TIMEOUT))
+    try:
+        mesh = make_local_mesh(device, model=CX_MODEL)
+        smoke = job["smoke"]
+        out = {"coords": (mesh.rank, mesh.model_rank),
+               "f32": cx_parity_run(device, mesh, smoke)}
+        arch, shape, n_layers, batch = CX_DRYRUN
+        spent = []
+        cut = dryrun.execute_cell(
+            arch, shape, device, layers=n_layers, batch=batch,
+            model=CX_MODEL, data=CX_DATA,
+            around=timed_collectives(lambda: _sync(device), spent),
+            **({"cfg": cx_config(True), "seq": CX_SMOKE[1]}
+               if smoke else {}))
+        cfg = cx_config(True) if smoke else get_config(arch).scaled(
+            num_layers=n_layers)
+        seq = CX_SMOKE[1] if smoke else CX_RING
+        out["bf16"] = {
+            "gather_s_a_tick": sum(spent) / (dryrun.WARMUP + dryrun.ITERS),
+            "cache_bytes": dryrun._nbytes(tf.init_caches(
+                cfg, 1, seq, "meta", mesh=mesh)),
+            "cache_bytes_one_process": dryrun._nbytes(tf.init_caches(
+                cfg, 1, seq, "meta")),
+            "cut": {k: cut[k] for k in (
+                "reduced", "data", "data_rank", "model", "model_rank",
+                "count_equal", "count_diff", "collectives", "flops",
+                "bytes", "meta_flops", "meta_bytes", "measured_s",
+                "step_s", "compute_s", "memory_s", "roofline_share",
+                "kernels")}}
+        torch.save(out, job["out"].format(rank=rank))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def context_phase(device, smoke: bool = False) -> dict:
+    """A batch of 1 over ("data", "model"): ``CX_DATA`` x ``CX_MODEL`` gloo
+    ranks on the one card (``cx_worker``), each holding a quarter of every
+    attention ring, data major, against one process (this one, after the
+    ranks ended):
+    (a) gemma3-12b's period at full width in float32, unit scores: the
+    prefill's and each tick's logits within ``LOGIT_TOL`` of one
+    process's, the 4 ranks' logits bit for bit equal, every rank holding
+    a quarter of each ring's rows, the kernels each launched on every
+    rank;
+    (b) the dry run's cut ``CX_DRYRUN`` in bf16 on every rank, its count
+    (collectives included) equal to the meta count of one device of the
+    mesh (returned for ``dryrun_phase``); its ms a tick, the ms inside
+    the gathers and a rank's cache bytes, beside one process's.
+    ``smoke``: the smoke config, for a rehearsal on the CPU."""
+    t0 = time.perf_counter()
+    world = CX_DATA * CX_MODEL
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(tmp, world, {"device": str(device.type),
+                                         "smoke": smoke},
+                            flag="--cx-worker")
+    t_ranks = time.perf_counter() - t0
+    check([r["coords"] for r in ranks] ==
+          [(d, c) for d in range(CX_DATA) for c in range(CX_MODEL)],
+          f"context: the ranks' coordinates {[r['coords'] for r in ranks]}")
+    want = cx_parity_run(device, None, smoke)
+    got = [r["f32"] for r in ranks]
+    g0 = got[0]
+    same = all(torch.equal(a, b) for g in got[1:]
+               for a, b in zip(g0["logits"], g["logits"]))
+    dl = [float((a - b).abs().max()) for a, b in
+          zip(g0["logits"], want["logits"])]
+    L, S = CX_SMOKE if smoke else (CX_PROMPT, CX_RING)
+    rows = sorted(set(g0["cache_rows"]))
+    if device.type == "cuda":
+        print(card_line())
+    print(f"context {CX_ARCH} (one period at full width, float32, unit "
+          f"scores, batch 1): {CX_DATA} x {CX_MODEL} gloo ranks against one "
+          f"process: a {L}-token prompt into a ring of {S} rows, refilled, "
+          f"then {CX_TICKS} ticks from row {S - 1}: max|dlogit| prefill then "
+          "ticks " + " ".join(f"{x:.3e}" for x in dl) +
+          f"; the ranks' logits equal {same}; ring rows a rank {rows} "
+          f"(one process {sorted(set(want['cache_rows']))}); kernels "
+          f"{g0['launches']}")
+    check(same, "context: the ranks' logits differ")
+    check(all(g["finite"] for g in got) and want["finite"],
+          "context: logits not finite")
+    check(max(dl) <= LOGIT_TOL, f"context: logits differ by {max(dl)}")
+    rings = [min(S, spec.window or S) for spec in cx_config(smoke).pattern]
+    check(all(g["cache_rows"] == [r // world for r in rings] for g in got),
+          f"context: a rank's ring rows {g0['cache_rows']}, not a quarter "
+          f"of {rings}")
+    for g in got:
+        for k in ("rmsnorm", "flash_attention", "decode_attention"):
+            check(g["launches"][k] > 0, f"context: {k} not launched")
+    ticks = np.array(g0["tick_s"]) * 1e3
+    gathers = np.array(g0["tick_gather_s"]) * 1e3
+    bf = [r["bf16"] for r in ranks]
+    cut = [b["cut"] for b in bf]
+    one = bf[0]["cache_bytes_one_process"]
+    print(f"context float32 on rank 0: prefill {g0['prefill_s'] * 1e3:.1f} ms "
+          f"(gathers {g0['prefill_gather_s'] * 1e3:.1f} ms of it); ticks "
+          + " ".join(f"{t:.1f}" for t in ticks) + " ms, of which the "
+          "gathers (host) " + " ".join(f"{t:.1f}" for t in gathers) +
+          f" ms; cache bytes a rank {g0['cache_bytes'] / 1e9:.4f} GB, one "
+          f"process {want['cache_bytes'] / 1e9:.4f} GB")
+    print(f"context bf16 cut {cut[0]['reduced']}: cache bytes a rank "
+          f"{bf[0]['cache_bytes'] / 1e9:.4f} GB (the sequence over \"model\" "
+          f"only {one / CX_MODEL / 1e9:.4f} GB, one process "
+          f"{one / 1e9:.4f} GB); median "
+          f"{cut[0]['measured_s'] * 1e3:.2f} ms a tick of "
+          f"{[round(t * 1e3, 2) for t in cut[0]['step_s']]}, of which the "
+          f"gathers (host) {bf[0]['gather_s_a_tick'] * 1e3:.2f} ms a tick; "
+          f"counts equal to meta's on the ranks "
+          f"{[c['count_equal'] for c in cut]}")
+    check(all(b["cache_bytes"] * world == one for b in bf),
+          f"context: a rank's cache bytes {bf[0]['cache_bytes']} are not a "
+          f"quarter of one process's {one}")
+    out = {"ranks": world, "wall_ranks_s": t_ranks,
+           "max_abs_dlogit": dl, "ranks_equal": same,
+           "launches": g0["launches"], "cache_rows": g0["cache_rows"],
+           "f32_cache_bytes": g0["cache_bytes"],
+           "f32_prefill_s": g0["prefill_s"], "f32_tick_s": g0["tick_s"],
+           "f32_tick_gather_s": g0["tick_gather_s"],
+           "bf16_cache_bytes": bf[0]["cache_bytes"],
+           "bf16_cache_bytes_one_process": one,
+           "bf16_tick_s": cut[0]["step_s"],
+           "bf16_gather_s_a_tick": bf[0]["gather_s_a_tick"],
+           "dryrun": cut, "wall_s": time.perf_counter() - t0}
+    print("context: " + json.dumps({k: v for k, v in out.items()
+                                    if k != "dryrun"}))
+    free_memory()
+    return out
+
+
 # -- phase 10: the dry run: counted on meta, checked on the card ------------
 
 # (arch, shape, layers, batch): the cells the card executes, cut to fit
@@ -3438,6 +3746,23 @@ LM_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:38",
                "moe_gmm": "src/repro/kernels/moe_gmm.py:50"}
 
 
+def context_entry(rows, launches: dict) -> dict:
+    """The ``kernels`` line's entry of the context phase: decode
+    attention's launches in its float32 run (rank 0's, every slice of
+    every ring), once, and the ``CX_SLICES`` rows, each marked whether
+    the phase's data 2 x model 2 ranks launch that slice."""
+    shapes = []
+    for sl in CX_SLICES:
+        row = rows[("decode_attention_slice", cx_slice_label(sl))]
+        shapes.append({
+            "shape": f"{cx_slice_label(sl)} (a rank's slice of a "
+                     f"{CX_ARCH} long_500k ring)",
+            "launched_here": sl[1] * CX_DATA * CX_MODEL == sl[2],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
+    return {"launches": launches["decode_attention"], "shapes": shapes}
+
+
 def lm_line(name, rows, launches, label) -> dict:
     """A kernel's entry of the ``kernels`` line: times and bound at the
     row whose label ends with ``label`` (the largest served bf16 shape),
@@ -3471,6 +3796,8 @@ def main() -> int:
         return dp_worker(json.loads(Path(sys.argv[2]).read_text()))
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-worker":
         return tp_worker(json.loads(Path(sys.argv[2]).read_text()))
+    if len(sys.argv) == 3 and sys.argv[1] == "--cx-worker":
+        return cx_worker(json.loads(Path(sys.argv[2]).read_text()))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the card only",
               file=sys.stderr)
@@ -3591,10 +3918,15 @@ def main() -> int:
     # run's model-axis cut
     axis = model_axis_phase(device)
     mark("model axis")
+    # a batch of 1 over data 2 x model 2: gemma3-12b's period with each
+    # ring's sequence spread over the 4 ranks, against one process, and
+    # the dry run's long-context cut
+    context = context_phase(device)
+    mark("context")
     # the dry run: meta counts of the grid, and three cells executed on
     # the card, each count equal to its meta count at the same cut, and
-    # the model-axis and FSDP cuts' ranks
-    dryrun_phase(device, axis["dryrun"], dp["dryrun"])
+    # the model-axis, long-context and FSDP cuts' ranks
+    dryrun_phase(device, axis["dryrun"] + context["dryrun"], dp["dryrun"])
     mark("dry run")
     # the kernel's line: one 1024-frame chunk of the full-width operator,
     # its five conv layers (the main path's largest dispatch); the bound
@@ -3641,7 +3973,8 @@ def main() -> int:
                           "decode_attention_slice", lm_rows, 0,
                           "bfloat16").items()
                          if k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}}}] +
+                                  "bound_ms", "bound_by", "library_ms")}},
+            "context": context_entry(lm_rows, context["launches"])}] +
         [lm_line("moe_gmm", granite_rows, moe_serve["launches"]["moe_gmm"],
                  "C=512 1536->512 bfloat16") | {
                      "train_launches": training["launches"]["moe_gmm"],

@@ -25,7 +25,7 @@ sliced over "data" (FSDP, each block's weights gathered where the block
 runs, again in a rematerialised block's backward, the gradients
 reduce-scattered), and vocab, heads, kv heads where they divide, ffn,
 experts and Mamba's d_inner split over "model", the decode caches split
-by sequence over "model".
+by sequence over "model", or over ("data", "model") at a batch of 1.
 
 * ``card``: one card, nothing split.
 * ``node`` (``{data: 8}``): eight ranks, FSDP over "data".
@@ -48,9 +48,13 @@ tree pads to its 16-way axes, and its router only the real experts
 everywhere; it holds norm scales in float32 and a served model's
 weights in the compute type; it would replicate the kv heads over
 "model" where its query heads are padded (``attention.kv_split``);
-its caches of a batch of 1 are split over "model" only, where the JAX
-placement spreads them over ("data", "model"), and Mamba's conv state
-is split by d_inner, which the JAX cache rule leaves whole.
+Mamba's conv state is split by d_inner, which the JAX cache rule
+leaves whole; and at a batch of 1 it refuses a ring that the ranks of
+("data", "model") do not divide, which the JAX placement replicates.
+The caches of a batch of 1 are placed as the JAX ones (the batch whole
+on every data rank, each attention ring's sequence spread over
+("data", "model"), ``parallel/ops.serve_placement``), so their bytes
+match.
 
 The MoE dispatch allocates static capacity rows, whose shapes follow
 from the token count, so the counted expert work is the capacity's, not
@@ -75,13 +79,14 @@ writes one JSON a cell under ``results/dryrun_torch/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
 import time
 import traceback
 from pathlib import Path
-from typing import Dict, Optional
+from typing import ContextManager, Dict, Optional
 
 import torch
 
@@ -92,6 +97,7 @@ from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import (DRYRUN_MESHES, Mesh, make_dryrun_mesh,
                                      make_local_mesh)
 from repro_torch.models import attention, moe, transformer
+from repro_torch.parallel import ops as pops
 from repro_torch.parallel import sharding
 from repro_torch.train import optimizer as opt
 from repro_torch.train import train_step as steps
@@ -184,7 +190,9 @@ def build_step(cfg, cell, device: torch.device, batch: int, mesh=None):
     drawn from seed 0 (none on ``meta``); the count does not depend on
     them. ``mesh``: the step of one rank of its model axis (its slice of
     the model and caches, under the mesh); ``batch`` is the rows of
-    the mesh's data ranks together (each takes its own)."""
+    the mesh's data ranks together, each rank (or a dry run's view of
+    one) taking its own (``train_step.shard_batch``; a served batch of 1
+    whole on each, ``parallel/ops.serve_placement``)."""
     gen = None if device.type == "meta" else \
         torch.Generator(device=device).manual_seed(0)
     model = transformer.init_model(cfg, gen, device,
@@ -218,7 +226,8 @@ def build_step(cfg, cell, device: torch.device, batch: int, mesh=None):
 
 
 def count_step(cfg, cell, batch: int, device: Device = "meta", mesh=None):
-    """(the op count of one step, its outputs, the model)."""
+    """(the op count of one step, its outputs, the model)
+    (``build_step``'s arguments)."""
     device = resolve_device(device)
     run, model = build_step(cfg, cell, device, batch, mesh)
     with op_analysis.count(device.type) as counter:
@@ -271,10 +280,11 @@ def _executed_cell(cfg, cell, mesh_name: str) -> dict:
     placement's memory beside the port's."""
     mesh = make_dryrun_mesh(mesh_name)
     ranks = mesh.processes                     # the batch axes' devices
+    view = device_view(mesh)
     B = cell.global_batch
-    per_device = B // ranks if B % ranks == 0 else B
-    counter, out, model = count_step(cfg, cell, per_device, "meta",
-                                     device_view(mesh))
+    per_device = B // ranks if cell.kind == "train" else \
+        pops.serve_placement(view, B)[0]
+    counter, out, model = count_step(cfg, cell, B, "meta", view)
     train = cell.kind == "train"
     coll = op_analysis.collective_plan(model, ranks, train,
                                        mesh.data_slices)
@@ -337,16 +347,23 @@ def jax_differences(cfg, cell, mesh_name: str) -> Dict[str, list]:
                        "query heads are padded (attention.kv_split), split "
                        "in the JAX placement")
     if cell.kind != "train":
-        if cell.global_batch == 1 and mesh.size > 1 and attends:
-            cache.append("a batch of 1: the JAX placement spreads the "
-                         "attention cache's sequence over (\"data\", "
-                         "\"model\"), the port holds it on every data "
-                         "rank, split over \"model\" only")
+        n = pops.serve_placement(mesh, cell.global_batch)[1][0]
+        if cell.global_batch == 1 and n > 1 and any(
+                _ring(spec, cell.seq_len) % n for spec in cfg.pattern
+                if spec.mixer in ("attn", "attn_window")):
+            cache.append("a batch of 1: a ring the ranks of (\"data\", "
+                         "\"model\") do not divide is replicated in the "
+                         "JAX placement, refused by the port")
         if m > 1 and "mamba" in mixers:
             cache.append("Mamba's conv state: split by d_inner over "
                          "\"model\" in the port, whole in the JAX "
                          "cache_shardings")
     return {"weights": weights, "cache": cache}
+
+
+def _ring(spec, seq: int) -> int:
+    """The ring rows of an attention layer of ``spec`` at ``seq``."""
+    return min(seq, spec.window) if spec.window is not None else seq
 
 
 def jax_placement(cfg, cell, mesh_name: str) -> dict:
@@ -453,14 +470,17 @@ def time_step(run, device: torch.device) -> list:
 def execute_cell(arch: str, shape_name: str, device: Device = None, *,
                  layers: Optional[int] = None, batch: Optional[int] = None,
                  seq: Optional[int] = None, cfg=None, model: int = 1,
-                 data: int = 1) -> dict:
+                 data: int = 1,
+                 around: Optional[ContextManager] = None) -> dict:
     """Run ``arch``'s ``shape_name`` step for real on ``device`` (the card
     unless the caller asks for the CPU), cut to ``layers`` layers and
     ``batch`` rows, under the op count; hold its count to the ``meta``
     count of the same cut (``count_equal``: FLOPs, bytes, FLOPs by
     class, every kernel's calls, FLOPs and bytes, and every aten op's
     calls, all equal); then time ``ITERS`` steps after ``WARMUP``
-    (separate, uncounted runs) and read the median against the roofline terms: ``roofline_share`` =
+    (separate, uncounted runs, inside ``around``: a context of the
+    caller's, such as a timer of the collectives) and read the median
+    against the roofline terms: ``roofline_share`` =
     max(compute_s, memory_s) / measured, ``mfu`` = model FLOPs /
     (measured x the bf16 peak). No fallback: a kernel that does not
     build or launch fails the cell.
@@ -501,18 +521,19 @@ def execute_cell(arch: str, shape_name: str, device: Device = None, *,
                                                  "model": model}:
         raise ValueError(f"a mesh of {data} x {model} over "
                          f"{mesh.size} processes")
-    if B % data:
-        raise ValueError(f"{B} rows do not divide over {data} data ranks")
-    meta, _, _ = count_step(cfg, cell, B // data, "meta",
-                            device_view(mesh) if mesh else None)
+    view = device_view(mesh) if mesh else None
+    rows = B // data if cell.kind == "train" else \
+        pops.serve_placement(view, B)[0]
+    meta, _, _ = count_step(cfg, cell, B, "meta", view)
     run, _ = build_step(cfg, cell, device, B, mesh)
     with op_analysis.count(device.type) as counter:
         run()
     _sync(device)
-    times = time_step(run, device)
+    with around or contextlib.nullcontext():
+        times = time_step(run, device)
     measured = statistics.median(times)
     roof = roofline(counter.flops_by_class, counter.bytes)
-    mf = model_flops(cfg, cell, B // data)
+    mf = model_flops(cfg, cell, rows)
     reduced = {"layers": [full.num_layers, cfg.num_layers],
                "batch": [cfgbase.SHAPES[shape_name].global_batch, B],
                "seq": [cfgbase.SHAPES[shape_name].seq_len, cell.seq_len]}

@@ -59,14 +59,13 @@ def decode_specs(cfg, cell, batch: Optional[int] = None, device="meta",
                  mesh=None):
     """(``tokens`` (B, 1) and ``pos`` (B,), int32; the caches of a
     ``seq_len`` context from ``init_caches``, a rank's under ``mesh``:
-    its model axis's part of them, for its rows of the B when the data
-    axis spans processes, as ``train_step.shard_batch`` cuts them)."""
+    its rows of the B and its part of each ring over the cache axis, as
+    ``parallel/ops.serve_placement`` places them: a B of 1 whole on every
+    rank, its rings split over ("data", "model"))."""
     B = batch or cell.global_batch
     inputs = {"tokens": _zeros((B, 1), torch.int32, device),
               "pos": _zeros((B,), torch.int32, device)}
-    rows = B // mesh.processes if mesh is not None and \
-        mesh.group is not None else B
-    return inputs, transformer.init_caches(cfg, rows, cell.seq_len, device,
+    return inputs, transformer.init_caches(cfg, B, cell.seq_len, device,
                                            mesh=mesh)
 
 

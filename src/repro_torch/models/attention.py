@@ -24,14 +24,18 @@ kv head (``kv_gather_index``; a dead head reads kv head 0). The input
 enters the rank's heads through ``parallel/ops.model_copy`` and the
 output projection's partial sums leave through ``model_sum``.
 
-The decode cache is split by sequence (the JAX ``cache_shardings``):
-each rank holds ``S/m`` ring rows of every kv head. A tick gathers the
-queries over the heads (and the new k, v where the kv heads are split),
-the rank holding ring row ``pos % S`` writes it, every rank attends over
-its own rows for all heads (``ops.decode_attention`` with the slice's
-row offset and its log-sum-exp), and the partial outputs are gathered
-and merged in rank order (``merge_partials``); each rank keeps its own
-heads for wo.
+The decode cache is split by sequence (the JAX ``cache_shardings``)
+over the cache axis of the installed mesh (``parallel/ops.cache_size``,
+``cache_rank``): the model axis's m ranks, or at a batch of 1 on a data
+axis of d processes all d·m ranks, data major. Rank i of n holds ring
+rows ``i·S/n … (i+1)·S/n - 1`` of every kv head. A tick gathers the
+queries over the heads (and the new k, v where the kv heads are split;
+nothing without a model axis), the rank holding ring row ``pos % S``
+writes it, every rank attends over its own rows for all heads
+(``ops.decode_attention`` with the slice's row offset and its
+log-sum-exp), and the n partial outputs are gathered over the cache
+axis and merged in its order (``merge_partials``), so every rank holds
+the same bits; each rank keeps its own heads for wo.
 """
 from __future__ import annotations
 
@@ -66,33 +70,39 @@ def kv_split(n_heads: int, n_kv: int, m: int) -> bool:
     return m > 1 and n_kv % m == 0 and padded_heads(n_heads) == n_heads
 
 
-def ring(k: torch.Tensor, S: int) -> torch.Tensor:
-    """The ring of S rows holding k (B, L, ...)'s positions 0 .. L-1:
-    row p % S holds position p, for the last min(L, S) positions; rows
-    past L are zero. ``k`` itself when L == S."""
-    L = k.shape[1]
+def ring_part(k: torch.Tensor, S: int, rows: slice) -> torch.Tensor:
+    """Rows ``rows`` of the ring of S rows holding k (B, L, ...)'s
+    positions 0 .. L-1, row p % S holding position p, built without the
+    rest of the ring (a rank's part of a long context's ring): row r
+    holds position L - 1 - ((L - 1 - r) mod S) once L > S, else position
+    r below L and zeros past it; ``k``'s own rows when L == S (``k``
+    itself for the whole ring)."""
+    L, a, b = k.shape[1], rows.start, rows.stop
     if L == S:
-        return k
+        return k[:, a:b].contiguous()
     if L > S:
-        return torch.roll(k[:, -S:], L % S, dims=1)
-    out = k.new_zeros((k.shape[0], S) + tuple(k.shape[2:]))
-    out[:, :L] = k
+        r = torch.arange(a, b, device=k.device)
+        return k[:, L - 1 - (L - 1 - r) % S]
+    out = k.new_zeros((k.shape[0], b - a) + tuple(k.shape[2:]))
+    n = max(min(b, L) - a, 0)
+    out[:, :n] = k[:, a:a + n]
     return out
 
 
 def merge_partials(parts) -> torch.Tensor:
     """The ranks' (out (B, H, D) float32, lse (B, H)) partial attention
     outputs over disjoint rows, merged in rank order: each weighted by
-    exp(lse - max lse) and divided by the weights' sum. Float32."""
-    top = parts[0][1]
-    for _, lse in parts[1:]:
-        top = torch.maximum(top, lse)
-    num = den = None
-    for out, lse in parts:
-        w = torch.exp(lse - top)
-        num = out * w[..., None] if num is None else num + out * w[..., None]
-        den = w if den is None else den + w
-    return num / den[..., None]
+    exp(lse - max lse), the weighted outputs and the weights summed rank
+    0 first, the one divided by the other. Float32. The max and the
+    weights are taken for every part at once and each sum adds one
+    tensor a part, so n parts take n + 8 operations, not 6 n."""
+    lse = torch.stack([t for _, t in parts])                  # (n, B, H)
+    w = torch.exp(lse - lse.amax(dim=0))[..., None]
+    terms = torch.cat([torch.stack([o for o, _ in parts]) * w, w], dim=-1)
+    total = terms[0]
+    for t in terms[1:]:
+        total = total + t
+    return total[..., :-1] / total[..., -1:]
 
 
 class Attention(nn.Module):
@@ -209,30 +219,28 @@ class Attention(nn.Module):
               cache_len: Optional[int]) -> Dict[str, torch.Tensor]:
         """The decode cache of a prefill's k, v (B, L, KV, D): rings of
         ``cache_len`` rows (the window's for a window layer; L when None),
-        row p % S holding position p. Under a model axis: every kv head
-        (gathered where they are split), this rank's S/m rows."""
+        row p % S holding position p. Over a cache axis of n ranks
+        (``parallel/ops.cache_size``): every kv head (gathered where they
+        are split over "model"), this rank's S/n rows."""
         S = k.shape[1] if cache_len is None else cache_len
         if self.window is not None:
             S = min(S, self.window)
-        if self.tp is None:
-            return {"k": ring(k, S), "v": ring(v, S)}
-        if "wk" in self.split:
+        if self.tp is not None and "wk" in self.split:
             kv = pops.model_gather(torch.cat([k, v], dim=2), dim=2)
             kv = kv.view(kv.shape[:2] + (self.tp.size, 2, self.n_kv, -1))
             k = kv[:, :, :, 0].flatten(2, 3)
             v = kv[:, :, :, 1].flatten(2, 3)
-        rows = ring_rows(S, self.tp)
-        return {"k": ring(k, S)[:, rows].contiguous(),
-                "v": ring(v, S)[:, rows].contiguous()}
+        rows = ring_rows(S, (pops.cache_size(), pops.cache_rank()))
+        return {"k": ring_part(k, S, rows), "v": ring_part(v, S, rows)}
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: torch.Tensor) -> torch.Tensor:
         """Decode one token per row (``attn_decode``). x (B, 1, d); cache
         k, v (B, S, KV, D) ring buffers, written in place: the new roped
         k, v go to ring row ``pos % S``; pos (B,) int32 absolute
-        positions, on x's device. Under a model axis the cache is this
-        rank's S/m rows of rings of S (``ring_rows``)."""
-        if self.tp is not None:
+        positions, on x's device. Over a cache axis of n ranks the cache
+        is this rank's S/n rows of rings of S (``ring_rows``)."""
+        if pops.cache_size() > 1:
             return self._decode_split(x, cache, pos)
         B = x.shape[0]
         S = cache["k"].shape[1]
@@ -248,17 +256,18 @@ class Attention(nn.Module):
         return self._proj_out(o[:, None])
 
     def _decode_split(self, x, cache, pos):
-        """The decode tick of a rank of the model axis (the module's
+        """The decode tick of a rank of the cache axis (the module's
         docstring)."""
         B = x.shape[0]
-        m, r = self.tp
+        n, i = pops.cache_size(), pops.cache_rank()
         Sl = cache["k"].shape[1]
         q, k, v = self._proj_qkv(x)
         p = pos[:, None]
         q = layers.apply_rope(q, p, self.rope_theta)[:, 0]     # (B, Hl, D)
         k = layers.apply_rope(k, p, self.rope_theta)[:, 0]     # (B, KVl, D)
         v = v[:, 0]
-        if "wk" in self.split:
+        # without a model axis the rank holds every head already
+        if self.tp is not None and "wk" in self.split:
             # one gather of every rank's queries and new k, v
             qkv = pops.model_parts(torch.cat([q, k, v], dim=1))
             q = torch.cat([t[:, :self.n_heads] for t in qkv], dim=1)
@@ -266,51 +275,54 @@ class Attention(nn.Module):
                            for t in qkv], dim=1)
             v = torch.cat([t[:, self.n_heads + self.n_kv:] for t in qkv],
                           dim=1)
-        else:
+        elif self.tp is not None:
             q = torch.cat(pops.model_parts(q), dim=1)
         # only the rank holding ring row pos % S writes it (every rank
         # runs the same operations)
         rows = torch.arange(B, device=x.device)
-        local = (pos % (Sl * m)).long() - r * Sl
+        local = (pos % (Sl * n)).long() - i * Sl
         own = ((local >= 0) & (local < Sl))[:, None, None]
         at = local.clamp(0, Sl - 1)
         cache["k"][rows, at] = torch.where(own, k, cache["k"][rows, at])
         cache["v"][rows, at] = torch.where(own, v, cache["v"][rows, at])
         o, lse = ops.decode_attention(
             q[:, :self.real_heads].contiguous(), cache["k"], cache["v"],
-            pos, row0=r * Sl, rows=Sl * m, lse=True)
-        parts = pops.model_parts(torch.cat([o.float(), lse[..., None]],
+            pos, row0=i * Sl, rows=Sl * n, lse=True)
+        # one merge of all n parts in the axis's order: the same bits on
+        # every rank
+        parts = pops.cache_parts(torch.cat([o.float(), lse[..., None]],
                                            dim=-1))
         o = merge_partials([(t[..., :-1], t[..., -1]) for t in parts])
-        hp = self.n_heads * m
-        if hp > self.real_heads:                      # the dead heads' zeros
-            o = torch.cat([o, o.new_zeros(
-                (B, hp - self.real_heads, self.head_dim))], dim=1)
-        o = o[:, self.h0:self.h0 + self.n_heads]                # own heads
+        if self.tp is not None:
+            hp = self.n_heads * self.tp.size
+            if hp > self.real_heads:                  # the dead heads' zeros
+                o = torch.cat([o, o.new_zeros(
+                    (B, hp - self.real_heads, self.head_dim))], dim=1)
+            o = o[:, self.h0:self.h0 + self.n_heads]            # own heads
         return self._proj_out(o.to(x.dtype)[:, None])
 
 
-def ring_rows(S: int, tp: layers.TP) -> slice:
-    """This rank's rows of a ring of S rows split by sequence over the
-    model axis (the JAX ``cache_shardings``' "model" on the cache's seq);
-    raises where m does not divide S."""
-    m, r = tp
-    if S % m:
-        raise ValueError(f"a ring of {S} rows does not divide over a model "
-                         f"axis of {m}")
-    return slice(r * (S // m), (r + 1) * (S // m))
+def ring_rows(S: int, axis: Tuple[int, int]) -> slice:
+    """This rank's rows of a ring of S rows split by sequence over a
+    cache axis of (size n, this rank's index i) (the JAX
+    ``cache_shardings``' "model", or ("data", "model") at a batch of 1,
+    on the cache's seq; ``parallel/ops.serve_placement``); raises where n
+    does not divide S, a ring the JAX placement would replicate."""
+    n, i = axis
+    if S % n:
+        raise ValueError(f"a ring of {S} rows does not divide over a cache "
+                         f"axis of {n} ranks")
+    return slice(i * (S // n), (i + 1) * (S // n))
 
 
 def init_cache(batch: int, seq: int, n_kv: int, head_dim: int,
                window: Optional[int], dtype: torch.dtype,
                device: torch.device,
-               tp: Optional[layers.TP] = None) -> Dict[str, torch.Tensor]:
+               axis: Tuple[int, int] = (1, 0)) -> Dict[str, torch.Tensor]:
     """KV cache tensors; window layers keep a ring buffer of ``window``
-    rows; under a model axis (``tp``) this rank's rows of it."""
-    s = min(seq, window) if window is not None else seq
-    if tp is not None and tp.size > 1:
-        rows = ring_rows(s, tp)
-        s = rows.stop - rows.start
-    shape = (batch, s, n_kv, head_dim)
+    rows; over a cache axis (``axis``: its size and this rank's index,
+    ``parallel/ops.serve_placement``) this rank's rows of it."""
+    rows = ring_rows(min(seq, window) if window is not None else seq, axis)
+    shape = (batch, rows.stop - rows.start, n_kv, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -45,7 +45,14 @@ entry points raise otherwise; its modules call the model axis's
 collectives (``parallel/ops.py``) in the same order on every rank, a
 rematerialised block's again in the backward. Its decode caches
 (``init_caches(..., mesh=...)``, ``prefill``) hold the rank's S/m ring
-rows of every kv head and its d_inner slice of a Mamba state. A
+rows of every kv head and its d_inner slice of a Mamba state. At a
+batch of 1 on a data axis of d processes (the JAX placement of
+``long_500k``) the batch is whole on every data rank and each
+attention ring is split over all d·m ranks, data major: rank (data
+d, model c) holds rows ``(d·m + c)·S/(d·m) …`` (``parallel/ops.
+serve_placement``), and a tick's partial outputs are merged over all of
+them in that order (``attention.py``); a Mamba state is then whole
+over "data", as in the JAX ``cache_shardings``. A
 parameter replicated over "model" (the norms, the router, a vocab that
 falls back) takes the same gradient, and keeps the same bits, on every
 model rank.
@@ -206,7 +213,7 @@ class Block(nn.Module):
             return self._ffn(x + out), cache if emit_cache else None
         out, (k, v) = self.mixer(h, positions)
         # ring alignment: decode writes at row pos % S, so the ring's row
-        # r holds position p with r == p % S (``attention.ring``)
+        # r holds position p with r == p % S (``attention.ring_part``)
         cache = self.mixer.cache(k, v, cache_len) if emit_cache else None
         return self._ffn(x + out), cache
 
@@ -874,8 +881,10 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     cache for a recurrent layer (``h`` and ``conv`` for Mamba, ``state``
     and ``conv`` for mLSTM, ``state`` for sLSTM). ``cache_len``: the
     attention caches as rings of that many rows (``init_caches``'),
-    position p at row p % S. Under a model axis each attention cache is
-    this rank's rows of its ring, every kv head."""
+    position p at row p % S. Over a cache axis (``parallel/ops.
+    cache_size``: the model axis, or ("data", "model") where the step
+    serves a batch of 1) each attention cache is this rank's rows of its
+    ring, every kv head."""
     model.check_axis()
     top = model.whole_top()
     x = model._embed(tokens, top)
@@ -900,6 +909,7 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
     v at row ``pos % S``, each recurrent layer's cache its new state, in
     place; returns (logits (B, 1, V), caches)."""
     model.check_axis()
+    _check_rings(model, caches, tokens.shape[0])
     pos = pos.to(device=model.device, dtype=torch.int32).reshape(-1)
     top = model.whole_top()
     x = model._embed(tokens, top)
@@ -908,19 +918,43 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
     return model._logits(model._final_norm(x, top), top), caches
 
 
+def _check_rings(model: Transformer, caches: Caches, rows: int) -> None:
+    """Raise where the attention caches are not this rank's part of the
+    rings that the installed step places (``parallel/ops.
+    serve_placement``): ``rows`` rows, and over its cache axis of n
+    ranks, S/n ring rows of every global layer and min(S, window)/n of a
+    window layer, for one S."""
+    n = pops.cache_size()
+    rings = [(block.mixer.window, c["k"].shape)
+             for block, c in zip(model.blocks, caches) if block.attends]
+    full = {shape[1] * n for w, shape in rings if w is None}
+    S = max(full) if full else None
+    for w, shape in rings:
+        ring = shape[1] * n
+        want = S if w is None else min(ring if S is None else S, w)
+        if len(full) > 1 or ring != want or shape[0] != rows:
+            raise ValueError(
+                f"the caches' rings {[tuple(sh[:2]) for _, sh in rings]} "
+                f"are not a rank's part of rings placed for {rows} rows "
+                f"over a cache axis of {n} ranks")
+
+
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 device: Device = None, mesh=None) -> Caches:
     """Zeroed decode caches, one a layer (``prefill``'s leaves at
     ``batch`` rows; attention's k, v at ``cache_len`` ring rows, or the
     window's), recurrent states at their initial values. ``mesh``: this
-    rank's caches under the mesh's model axis (its rows of each ring,
-    its d_inner slice of a Mamba state where d_inner divides)."""
+    rank's caches of a step serving a global ``batch`` over the mesh
+    (``parallel/ops.serve_placement``: its rows of the batch, its rows of
+    each ring over the cache axis, the model axis or at a batch of 1
+    ("data", "model"); its d_inner slice of a Mamba state where d_inner
+    divides)."""
     check_supported(cfg)
     device = resolve_device(device)
     cdt = torch_dtype(cfg.compute_dtype)
     d, H = cfg.d_model, cfg.num_heads
     m = 1 if mesh is None else int(mesh.shape.get("model", 1))
-    tp = layers.TP(m, mesh.model_rank) if m > 1 else None
+    batch, axis = pops.serve_placement(mesh, batch)
     di_split = m if m > 1 and (d * cfg.mamba_expand) % m == 0 else 1
     out = []
     for i in range(cfg.num_layers):
@@ -939,6 +973,6 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
         else:
             c = attention.init_cache(batch, cache_len, cfg.num_kv_heads,
                                      cfg.resolved_head_dim, spec.window,
-                                     cdt, device, tp)
+                                     cdt, device, axis)
         out.append(c)
     return out

@@ -37,6 +37,19 @@ device, model=m)``):
     merge;
   * ``model_rank()``, ``model_size()``.
 
+The served placement. The JAX ``cache_shardings`` splits an attention
+cache's sequence over "model", and at a batch of 1 over ("data",
+"model"): the batch is then whole on every data rank, and the d·m ranks
+of a data axis of d processes and a model axis of m hold the ring's rows
+in that flat order, data major (rank (d, c) is shard d·m + c; a pod axis
+holds the same rows again). ``serve_placement(mesh, batch)`` is that
+rule, the one place it is decided: a rank's rows of a served global
+batch and its cache axis (size, index). ``cache_size()`` and
+``cache_rank()`` read it for the installed mesh and the served batch
+that the step installs (``use_mesh(..., batch=)``); ``cache_parts(x)``
+gathers ``x`` over the cache axis in its order (the model axis, then
+the data group).
+
 Each is the identity, or a list of one, without a model axis. There is
 no all-reduce: its order of addition is the backend's, and with sums in
 rank order every tensor replicated over "model" has the same bits on
@@ -72,19 +85,25 @@ bytes to the op count (``kernels/count.collective``).
 from __future__ import annotations
 
 import contextlib
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import count
 
-_STATE = {"mesh": None, "rules": None}
+_STATE = {"mesh": None, "rules": None, "batch": None}
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, rules: dict):
+def use_mesh(mesh, rules: dict, batch: Optional[int] = None):
+    """``mesh`` and its ``rules`` installed for the code it wraps.
+    ``batch``: the global batch of the prefill or decode step run under
+    it (None: no served step), which places the attention caches
+    (``serve_placement``)."""
     prev = dict(_STATE)
     _STATE["mesh"] = mesh
     _STATE["rules"] = rules
+    _STATE["batch"] = batch
     try:
         yield
     finally:
@@ -308,6 +327,63 @@ def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
 def model_parts(x: torch.Tensor) -> list:
     """The model ranks' ``x`` in rank order (no gradient)."""
     return [x] if model_size() == 1 else _model_parts(x)
+
+
+# -- the cache axis ------------------------------------------------------------
+
+def serve_placement(mesh, batch: Optional[int]) -> Tuple[int, Tuple[int,
+                                                                      int]]:
+    """(this rank's rows of a served global ``batch``, its cache axis:
+    (size, this rank's index)) on ``mesh``. Where the batch axes span
+    processes (or a dry run's view of them): a batch of 1 is whole on
+    every data rank, its attention caches' sequence split over ("data",
+    "model"), size d·m, index d·m + c; a larger batch is cut into equal
+    rows a data rank, its caches split over "model", (m, c), and raises
+    where it does not divide. One process: the whole batch, (m, c).
+    Without a mesh: the whole batch, (1, 0). ``batch`` None (a mesh
+    installed with no served batch) raises where it would decide."""
+    if mesh is None:
+        return batch, (1, 0)
+    m, c = int(mesh.shape.get("model", 1)), mesh.model_rank
+    p = mesh.processes
+    if p == 1:
+        return batch, (m, c)
+    if batch is None:
+        raise ValueError(f"the served batch over {p} data ranks is not "
+                         "known: run the step under use_mesh(mesh, rules, "
+                         "batch=) (train_step.make_prefill_step, "
+                         "make_decode_step)")
+    if batch == 1:
+        return 1, (mesh.data_slices * m, mesh.rank * m + c)
+    if batch % p:
+        raise ValueError(f"a served batch of {batch} rows does not divide "
+                         f"over {p} data-parallel ranks")
+    return batch // p, (m, c)
+
+
+def cache_size() -> int:
+    """The installed mesh's cache axis (``serve_placement``); 1 without
+    one."""
+    return serve_placement(_STATE["mesh"], _STATE["batch"])[1][0]
+
+
+def cache_rank() -> int:
+    """This rank's index on the installed mesh's cache axis."""
+    return serve_placement(_STATE["mesh"], _STATE["batch"])[1][1]
+
+
+@torch.no_grad()
+def cache_parts(x: torch.Tensor) -> list:
+    """The cache axis's ranks' ``x`` in its order (no gradient): the
+    model ranks' gathered, then those of every data rank over the data
+    group (two gathers); ``model_parts`` where the axis is the model
+    axis's."""
+    parts = model_parts(x)
+    n = cache_size() // model_size()
+    if n == 1:
+        return parts
+    rows = _parts(torch.stack(parts), _STATE["mesh"].group, n)
+    return [p for block in rows for p in block.unbind(0)]
 
 
 @torch.no_grad()

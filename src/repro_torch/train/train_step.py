@@ -40,12 +40,13 @@ its gradients over its data group only, and AdamW clips by the whole
 model's norm (``optimizer.global_norm`` over the model's
 ``split_axes()``). The prefill and decode steps run under the mesh too,
 on the rows of the rank's data coordinate, the weights gathered a block
-at a time.
+at a time; a served batch of 1 is whole on every data rank instead, its
+attention caches split over ("data", "model") (``serve_rows``).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -102,9 +103,10 @@ def _check(cfg, model) -> None:
 def shard_batch(mesh, batch: Mapping) -> Dict:
     """This rank's rows of a global batch: rows ``[r·B/n, (r+1)·B/n)`` of
     every leaf that ``sharding.data_batch_specs`` splits on dim 0 over the
-    mesh's data axis of n processes. A batch leaf whose rows do not
-    divide raises: replicated, its gradient would be added n times."""
-    if mesh is None or mesh.group is None:
+    mesh's data axis of n processes (on a dry run's view of a mesh, its
+    device's). A batch leaf whose rows do not divide raises: replicated,
+    its gradient would be added n times."""
+    if mesh is None or mesh.processes == 1:
         return dict(batch)
     n, r = mesh.processes, mesh.rank
     specs = sharding.data_batch_specs(mesh, batch)
@@ -198,11 +200,20 @@ def loss_and_grads(model, batch, mesh=None):
     return loss.detach(), grads
 
 
-def _mesh(mesh):
-    """``parallel/ops.use_mesh`` of ``mesh`` with its rules (nothing
-    without one)."""
-    return pops.use_mesh(mesh, sharding.default_rules(mesh)) \
+def _mesh(mesh, batch: Optional[int] = None):
+    """``parallel/ops.use_mesh`` of ``mesh`` with its rules and the served
+    global ``batch`` (nothing without a mesh)."""
+    return pops.use_mesh(mesh, sharding.default_rules(mesh), batch) \
         if mesh is not None else contextlib.nullcontext()
+
+
+def serve_rows(mesh, batch: Mapping) -> Dict:
+    """This rank's rows of a served global batch
+    (``parallel/ops.serve_placement``): a batch of 1 whole on every data
+    rank, any other cut by ``shard_batch``."""
+    rows, _ = pops.serve_placement(mesh, len(batch["tokens"]))
+    return dict(batch) if rows == len(batch["tokens"]) else \
+        shard_batch(mesh, batch)
 
 
 def make_train_step(cfg, opt_cfg: opt.AdamWConfig, mesh=None):
@@ -222,23 +233,26 @@ def make_train_step(cfg, opt_cfg: opt.AdamWConfig, mesh=None):
 
 
 def make_prefill_step(cfg, mesh=None, cache_len=None):
-    """``mesh``: run under it, on this rank's rows; ``cache_len``: the
-    caches as rings of that many rows (``transformer.prefill``)."""
+    """``mesh``: run under it, on this rank's rows of the global batch
+    (``serve_rows``: a batch of 1 whole on every data rank, its caches
+    split over ("data", "model")); ``cache_len``: the caches as rings of
+    that many rows (``transformer.prefill``)."""
     def prefill_step(model, batch):
         _check(cfg, model)
-        b = to_batch(shard_batch(mesh, batch), model.device)
-        with _mesh(mesh):
+        b = to_batch(serve_rows(mesh, batch), model.device)
+        with _mesh(mesh, len(batch["tokens"])):
             return transformer.prefill(model, b["tokens"],
                                        b.get("prefix_embeds"), cache_len)
     return prefill_step
 
 
 def make_decode_step(cfg, mesh=None):
-    """``mesh``: run under it, on this rank's rows and caches."""
+    """``mesh``: run under it, on this rank's rows and caches (as
+    ``make_prefill_step``'s)."""
     def decode_step(model, caches, batch):
         _check(cfg, model)
-        b = to_batch(shard_batch(mesh, batch), model.device)
-        with _mesh(mesh):
+        b = to_batch(serve_rows(mesh, batch), model.device)
+        with _mesh(mesh, len(batch["tokens"])):
             return transformer.decode_step(model, caches, b["tokens"],
                                            b["pos"])
     return decode_step

@@ -20,7 +20,10 @@ mesh=mesh)``). Then, each when the job asks for it:
   * ``decode``: a served model of the same slice: the prefill step's
     last logits of the batch's first ``prompt`` tokens (rings of
     ``cache_len`` rows), then one decode step a token of ``ticks``, each
-    step's logits.
+    step's logits, and the rank's rows of every attention ring after the
+    prefill and after the last tick. A batch of 1 on a data axis of more
+    than one rank is whole on every rank, its rings split over
+    ("data", "model") (``train_step.serve_rows``).
 
 Writes the results to ``out`` (``{rank}`` filled in). Runs on the CPU
 with one torch thread; imports neither JAX nor the JAX package.
@@ -66,6 +69,13 @@ def spawn(tmp, world: int, job: dict) -> list:
         assert p.returncode == 0, f"rank {r}: {out[-2000:]}\n{err[-4000:]}"
     return [torch.load(job["out"].format(rank=r), weights_only=False)
             for r in range(world)]
+
+
+def rings(caches) -> list:
+    """Copies of the attention layers' k, v rows (None for another
+    layer)."""
+    return [{k: c[k].clone() for k in ("k", "v")} if "k" in c else None
+            for c in caches]
 
 
 def main():
@@ -127,6 +137,7 @@ def main():
             out["prefill"] = logits
             out["cache_rows"] = [c["k"].shape[1] for c in caches
                                  if "k" in c]
+            out["caches"] = rings(caches)
             ticks = torch.load(job["ticks"], weights_only=False)
             pos = torch.full((tokens.shape[0],), tokens.shape[1],
                              dtype=torch.int32)
@@ -136,6 +147,7 @@ def main():
                                         {"tokens": t, "pos": pos})
                 out["ticks"].append(logits)
                 pos = pos + 1
+            out["final_caches"] = rings(caches)
         torch.save(out, job["out"].format(rank=dist.get_rank()))
     finally:
         dist.destroy_process_group()

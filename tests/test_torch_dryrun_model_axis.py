@@ -63,7 +63,9 @@ def test_split_products_are_a_sixteenth_of_the_card_count(kind):
     assert not tf.placement(cfg, make_dryrun_mesh("pod"))[1]
     cell = _cell(kind, 256)
     pod = dryrun.device_view(make_dryrun_mesh("pod"))
-    split, _, _ = dryrun.count_step(cfg, cell, 2, "meta", pod)
+    # the view takes its device's 2 rows of the data ranks' together
+    split, _, _ = dryrun.count_step(cfg, cell, 2 * pod.processes, "meta",
+                                    pod)
     whole, _, _ = dryrun.count_step(cfg, cell, 2, "meta")
     got, want = _mm_and_kernels(split), _mm_and_kernels(whole)
     assert set(got) == set(want) and got["mm"] > 0
@@ -90,8 +92,8 @@ def test_prefill_gathers_follow_the_placement():
                    cfg.vocab_size)
     H, F = cfg.num_heads, cfg.d_ff
     pod = dryrun.device_view(make_dryrun_mesh("pod"))
-    counter, _, _ = dryrun.count_step(cfg, _cell("prefill", S), B, "meta",
-                                      pod)
+    counter, _, _ = dryrun.count_step(cfg, _cell("prefill", S),
+                                      B * pod.processes, "meta", pod)
     item = 2                                     # bf16
     sums = (2 * L + 1) * M * B * S * d * item
     caches = L * M * B * S * 2 * (kv // M) * D * item
@@ -190,10 +192,8 @@ def test_memory_is_the_jax_placements_but_the_listed_causes(arch):
         for cell in cfgbase.cells_for(arch):
             if cell.kind != "decode":
                 continue
-            B = cell.global_batch
-            rows = B // mesh.processes if B % mesh.processes == 0 else B
-            caches = tf.init_caches(cfg, rows, cell.seq_len, "meta",
-                                    mesh=view)
+            caches = tf.init_caches(cfg, cell.global_batch, cell.seq_len,
+                                    "meta", mesh=view)
             jax = dryrun.jax_placement(cfg, cell, mesh_name)["memory"]
             _check_memory(dryrun._memory(served, (None, caches), False), jax,
                           dryrun.jax_differences(cfg, cell, mesh_name))
