@@ -124,6 +124,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from portbench.trace import union  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import landmarks as lm  # noqa: E402
 from repro_torch.core import operators as ops  # noqa: E402
@@ -948,23 +949,25 @@ def copy_split(busy: dict) -> str:
 
 def device_busy(prof, kernels=(("conv_scorer", "conv3x3_bias_relu"),
                               ("scorer_head", "dense_head"))) -> dict:
-    """Device time traced during a run: all kernels and copies, each
-    named kernel's share (``(label, name substring)`` pairs), and the
-    largest items. Empty when the trace holds no device time."""
-    # summed from the trace's raw events by name: ``key_averages`` builds
-    # a Python object an event, minutes for the million launches of a
-    # serve whose sLSTM runs one eager step a token
-    by_name = {}
+    """Device time traced during a run: the time some kernel or copy ran
+    (the union of their intervals: overlapping ones count once), each
+    named kernel's summed time (``(label, name substring)`` pairs), and
+    the largest items. Empty when the trace holds no device time."""
+    # read from the trace's raw events: ``key_averages`` builds a Python
+    # object an event, minutes for the million launches of a serve whose
+    # sLSTM runs one eager step a token
+    by_name, spans = {}, []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             t, n = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (t + e.duration_ns(), n + 1)
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
     rows = [(t * 1e-9, k, n) for k, (t, n) in by_name.items()]
-    total = sum(r[0] for r in rows)
-    if total <= 0:
+    busy = sum(b - a for a, b in union(spans)) * 1e-9
+    if busy <= 0:
         return {}
     rows.sort(reverse=True)
-    out = {"device_busy_s": total}
+    out = {"device_busy_s": busy}
     for label, sub in kernels:
         out[f"{label}_device_s"] = sum(r[0] for r in rows if sub in r[1])
     for label, key in HTOD.items():

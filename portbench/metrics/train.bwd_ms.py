@@ -1,0 +1,7 @@
+"""Device ms a step between the events of the program's ``train.bwd``
+span: the backward, remat's recompute included (``program_spans``)."""
+from portbench import program_spans as P
+
+
+def read(run):
+    return P.device_ms_per_step(run, "train.bwd")

@@ -50,6 +50,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.parallel import ops as pops
@@ -150,75 +151,82 @@ def moe_ffn(x: torch.Tensor, params: Mapping, *, n_experts: int,
     cdt = x.dtype
     T, k = B * S, top_k
     xf = x.reshape(T, d)
-    logits, probs, gate_w, gate_i = route(xf, router, k)
+    # the dispatch, routing to the filled capacity rows, is a span
+    # ``moe.dispatch`` with its counts: rows routed, kept, and in the buffer
+    with spans.span("moe.dispatch") as sp:
+        logits, probs, gate_w, gate_i = route(xf, router, k)
 
-    # ---- grouped sort-based dispatch into per-expert capacity rows ----
-    G = pops.local_group_count()
-    if torch.is_grad_enabled() and pops.data_ranks() > 1 and \
-            T // G < n_experts:
-        # training only: a served rank routes its rows as one process
-        # would (a decode tick's few rows form one group)
-        raise ValueError(f"a rank routes {T // G} tokens a group, fewer "
-                         f"than the {n_experts} experts; the global "
-                         "program would route them in one group")
-    if T % G or T // G < max(n_experts, 1):
-        G = 1                                  # tiny decode batches
-    Tg = T // G
-    dev = x.device
-    e_flat = gate_i.reshape(T * k)                         # token-major
-    # group-major, then expert: each group's entries sorted by expert in
-    # token order, as the JAX package's per-group stable sort (one group:
-    # the expert alone, and no extra operations on the serving path)
-    key = e_flat if G == 1 else torch.div(
-        torch.arange(T * k, device=dev), Tg * k, rounding_mode="floor") * E \
-        + e_flat
-    order = torch.argsort(key, stable=True)
-    sk = key[order]
-    se = sk if G == 1 else sk % E
-    st = torch.div(order, k, rounding_mode="floor")        # tokens
-    sw = gate_w.reshape(T * k)[order]
-    counts = torch.zeros(G * E, dtype=torch.long, device=dev).index_add_(
-        0, key, torch.ones_like(key))
-    starts = counts.cumsum(0) - counts
-    pos = torch.arange(T * k, device=dev) - starts[sk]
-    cap = max(8, int(-(-Tg * k * capacity_factor // max(n_experts, 1))))
-    keep = pos < cap
-    # expert e's capacity rows are buf[e * G·cap: (e + 1) * G·cap], group
-    # g's cap of them at g * cap; dropped entries go to the trash row
-    # E * G·cap, which is cut off
-    rows_e = G * cap
-    base = se * rows_e if G == 1 else \
-        se * rows_e + torch.div(sk, E, rounding_mode="floor") * cap
-    slot = torch.where(keep, base + pos, E * rows_e)
-    xs, row = xf, base + pos.clamp_max(cap - 1)
-    if tp is not None:
-        # this rank's experts only: the other experts' entries go to the
-        # trash row and add zero
-        E = params["wg"].shape[0]
-        lo = tp.rank * E * rows_e
-        keep = keep & (base >= lo) & (base < lo + E * rows_e)
-        slot = torch.where(keep, base - lo + pos, E * rows_e)
-        row = torch.where(keep, slot, 0)
-        xs, sw = pops.model_copy(xf), pops.model_copy(sw)
-    buf = torch.zeros(E * rows_e + 1, d, dtype=cdt, device=dev)
-    buf[slot] = xs[st] * keep[:, None].to(cdt)
-    buf = buf[:E * rows_e].view(E, rows_e, d)
+        # ---- grouped sort-based dispatch into per-expert capacity rows
+        G = pops.local_group_count()
+        if torch.is_grad_enabled() and pops.data_ranks() > 1 and \
+                T // G < n_experts:
+            # training only: a served rank routes its rows as one process
+            # would (a decode tick's few rows form one group)
+            raise ValueError(f"a rank routes {T // G} tokens a group, fewer "
+                             f"than the {n_experts} experts; the global "
+                             "program would route them in one group")
+        if T % G or T // G < max(n_experts, 1):
+            G = 1                                  # tiny decode batches
+        Tg = T // G
+        dev = x.device
+        e_flat = gate_i.reshape(T * k)                         # token-major
+        # group-major, then expert: each group's entries sorted by expert in
+        # token order, as the JAX package's per-group stable sort (one group:
+        # the expert alone, and no extra operations on the serving path)
+        key = e_flat if G == 1 else torch.div(
+            torch.arange(T * k, device=dev), Tg * k,
+            rounding_mode="floor") * E + e_flat
+        order = torch.argsort(key, stable=True)
+        sk = key[order]
+        se = sk if G == 1 else sk % E
+        st = torch.div(order, k, rounding_mode="floor")        # tokens
+        sw = gate_w.reshape(T * k)[order]
+        counts = torch.zeros(G * E, dtype=torch.long, device=dev).index_add_(
+            0, key, torch.ones_like(key))
+        starts = counts.cumsum(0) - counts
+        pos = torch.arange(T * k, device=dev) - starts[sk]
+        cap = max(8, int(-(-Tg * k * capacity_factor // max(n_experts, 1))))
+        keep = pos < cap
+        # expert e's capacity rows are buf[e * G·cap: (e + 1) * G·cap], group
+        # g's cap of them at g * cap; dropped entries go to the trash row
+        # E * G·cap, which is cut off
+        rows_e = G * cap
+        base = se * rows_e if G == 1 else \
+            se * rows_e + torch.div(sk, E, rounding_mode="floor") * cap
+        slot = torch.where(keep, base + pos, E * rows_e)
+        xs, row = xf, base + pos.clamp_max(cap - 1)
+        if tp is not None:
+            # this rank's experts only: the other experts' entries go to the
+            # trash row and add zero
+            E = params["wg"].shape[0]
+            lo = tp.rank * E * rows_e
+            keep = keep & (base >= lo) & (base < lo + E * rows_e)
+            slot = torch.where(keep, base - lo + pos, E * rows_e)
+            row = torch.where(keep, slot, 0)
+            xs, sw = pops.model_copy(xf), pops.model_copy(sw)
+        buf = torch.zeros(E * rows_e + 1, d, dtype=cdt, device=dev)
+        buf[slot] = xs[st] * keep[:, None].to(cdt)
+        buf = buf[:E * rows_e].view(E, rows_e, d)
+        if sp:
+            sp.count(routed=T * k, kept=keep.sum(), rows=E * rows_e)
 
     h = F.silu(ops.moe_gmm(buf, params["wg"])) * ops.moe_gmm(buf,
                                                              params["wu"])
     out_buf = ops.moe_gmm(h, params["wo"]).view(E * rows_e, d)
 
-    gathered = out_buf[row]
-    contrib = gathered * (sw * keep).to(cdt)[:, None]      # sorted order
-    # each token's k contributions, added in the compute type in sorted
-    # order (ascending expert), as the JAX package's scatter-add runs
-    # them; a fixed order, where index_add_ on the card would not be
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * k, device=dev)
-    rows = torch.sort(inv.view(T, k), dim=1).values
-    y = contrib[rows[:, 0]]
-    for j in range(1, k):
-        y = y + contrib[rows[:, j]]
+    with spans.span("moe.combine"):
+        gathered = out_buf[row]
+        contrib = gathered * (sw * keep).to(cdt)[:, None]  # sorted order
+        # each token's k contributions, added in the compute type in
+        # sorted order (ascending expert), as the JAX package's
+        # scatter-add runs them; a fixed order, where index_add_ on the
+        # card would not be
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(T * k, device=dev)
+        rows = torch.sort(inv.view(T, k), dim=1).values
+        y = contrib[rows[:, 0]]
+        for j in range(1, k):
+            y = y + contrib[rows[:, j]]
 
     shared = params.get("shared")
     split = shared is not None and tp is not None and shared_split
@@ -228,7 +236,9 @@ def moe_ffn(x: torch.Tensor, params: Mapping, *, n_experts: int,
         y = pops.model_sum(y)
     if shared is not None and not split:
         y = y + layers.swiglu(xf, shared["wg"], shared["wu"], shared["wo"])
-    return y.reshape(B, S, d), (logits, probs, gate_i)
+    y = y.reshape(B, S, d)
+    spans.around_backward("moe.bwd", y, x, dev)
+    return y, (logits, probs, gate_i)
 
 
 class MoE(nn.Module):

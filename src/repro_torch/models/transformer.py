@@ -89,6 +89,7 @@ import torch.nn as nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import Device, resolve_device
@@ -837,10 +838,13 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor,
     positions = torch.arange(x.shape[1], device=x.device)
     lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = model.cfg.remat and torch.is_grad_enabled()
+    # each block's recompute in the backward is a span ``train.remat``
+    recompute = spans.recompute("train.remat", x.device) if remat else None
     for block in model.blocks:
         if remat:
             x, lb_i, z_i = checkpoint(block.call, "train_forward", x,
-                                      positions, use_reentrant=False)
+                                      positions, use_reentrant=False,
+                                      context_fn=recompute)
         else:
             x, lb_i, z_i = block.call("train_forward", x, positions)
         lb, z = lb + lb_i, z + z_i

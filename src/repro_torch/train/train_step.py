@@ -51,6 +51,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.models import transformer
 from repro_torch.parallel import ops as pops
 from repro_torch.parallel import sharding
@@ -176,19 +177,24 @@ def sum_gradients(grads: Mapping[str, torch.Tensor], group,
         del send, parts, acc
 
 
-def loss_and_grads(model, batch, mesh=None):
+def loss_and_grads(model, batch, mesh=None, step: Optional[int] = None):
     """The loss of ``batch`` and every parameter's gradient (a dict in
     ``named_parameters`` order, zeros for a parameter the loss does not
     reach). With a mesh over processes: this rank's rows, the global
     loss, and the gradients summed over the ranks (a sliced weight's,
-    this rank's slice of the sum)."""
+    this rank's slice of the sum). ``step``: the training step its spans
+    (``train.input``, ``train.fwd``, ``train.bwd``) are recorded under."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    batch = to_batch(shard_batch(mesh, batch), model.device)
+    dev = model.device
+    with spans.span("train.input", step):
+        batch = to_batch(shard_batch(mesh, batch), dev)
     with _mesh(mesh):
-        loss = transformer.train_loss(model, batch)
-        loss.backward()
+        with spans.span("train.fwd", step, dev):
+            loss = transformer.train_loss(model, batch)
+        with spans.span("train.bwd", step, dev):
+            loss.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in params.items()}
     for p in params.values():
@@ -222,8 +228,9 @@ def make_train_step(cfg, opt_cfg: opt.AdamWConfig, mesh=None):
     the model split over its model axis)."""
     def train_step(model, opt_state: opt.OptState, batch):
         _check(cfg, model)
-        loss, grads = loss_and_grads(model, batch, mesh)
-        with _mesh(mesh):
+        step = opt_state.step
+        loss, grads = loss_and_grads(model, batch, mesh, step)
+        with _mesh(mesh), spans.span("train.optimizer", step, model.device):
             _, opt_state, metrics = opt.apply_updates(
                 opt_cfg, dict(model.named_parameters()), grads, opt_state,
                 decay=model.decay_mask(), split=model.split_axes())
