@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's seven CUDA kernel sources from this checkout,
+Builds the port's eight CUDA kernel sources from this checkout,
 all at once, prints each kernel's registers, spills and shared memory
 (and ptxas's notes on serialized wgmma pipelines; flash backward's
 tensor-core kernels at head dims 64 and 80 and rmsnorm's backward at
@@ -56,7 +56,11 @@ moe_gmm's two GEMM launches, and nothing else) against their plain
 versions at granite-moe-3b-a800m's training shapes and
 h2o-danube-1.8b's head dim 80 over 4096 tokens, each timed beside its
 plain version and the library's backward, with its share of the bound;
-the three AdamW steps again, bit for bit the first ones; 30 AdamW steps
+AdamW's update kernel over every parameter of 2 full-width layers of
+granite-moe-3b-a800m and of h2o-danube-1.8b, float32 and bfloat16, two
+steps bit for bit the eager loop's, timed beside the loop and
+``torch._fused_adamw_``; the three AdamW steps again, bit for bit the
+first ones; 30 AdamW steps
 of 2 full-width granite layers with wq and wk at their true fan-in, whose
 loss must fall by 0.5 (the learning check); one float32 step of 2
 full-width granite layers on
@@ -137,6 +141,7 @@ from repro_torch.core.runtime import (OperatorRuntime, TraceGuard,  # noqa: E402
 from repro_torch.core.stepper import drive  # noqa: E402
 from repro_torch.core.training import FrameBank  # noqa: E402
 from repro_torch.core.video import QUERY_CLASS, Video, corpus  # noqa: E402
+from repro_torch.kernels import adamw as aw  # noqa: E402
 from repro_torch.kernels import build, conv_scorer as cs, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -171,7 +176,7 @@ HOURS = 1.0
 # h2o, granite, jamba and xlstm)
 SERVE_NEW = 32
 KERNELS = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention",
-           "moe_gmm", "scorer_head", "flash_attention_bwd")
+           "moe_gmm", "scorer_head", "flash_attention_bwd", "adamw")
 LM_ARCH = "h2o-danube-1.8b"  # examples/serve_lm.py's default model
 MOE_ARCH = "granite-moe-3b-a800m"   # ROADMAP's MoE configuration
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
@@ -255,6 +260,9 @@ STEP_BITS_STEPS = 3          # steps of the history check (step_bits_phase)
 # rmsnorm's backward also over 4096 rows of xlstm-125m's and
 # h2o-danube-1.8b's widths
 RMS_BWD_WIDTHS = (768, 2560)
+# AdamW's update (adamw_phase) over every parameter of these models at
+# full width cut to 2 layers, float32 and bfloat16 parameters
+ADAMW_ARCHS = (TRAIN_ARCH, LM_ARCH)
 # the learning check (learn_phase): 2 full-width granite layers, wq and
 # wk at their true fan-in, AdamW at lr 1e-3 (3 warm-up steps) for 30
 # steps of 4 x 1024 tokens; the mean loss of the last 5 steps must be at
@@ -319,13 +327,14 @@ TC_KERNELS = {"moe_gmm": ("gmm_wgmma", "HGMMA"),
               "decode_attention": ("decode_bf16", "HMMA")}
 # kernels that must compile without spilling, by source: flash
 # backward's tensor-core kernels at the trained head dims (granite's 64,
-# h2o's 80), and rmsnorm's backward at every K (its prefetched rows and
-# column sums live in registers)
+# h2o's 80), rmsnorm's backward at every K (its prefetched rows and
+# column sums live in registers), and AdamW's update (32 values a thread)
 NO_SPILL = {"flash_attention_bwd": ("flash_bwd_dq_wgmma<64>",
                                     "flash_bwd_dkdv_wgmma<64>",
                                     "flash_bwd_dq_wgmma<80>",
                                     "flash_bwd_dkdv_wgmma<80>"),
-            "rmsnorm": ("rmsnorm_bwd_kernel",)}
+            "rmsnorm": ("rmsnorm_bwd_kernel",),
+            "adamw": ("adamw_kernel",)}
 
 
 class SmokeFailure(AssertionError):
@@ -2050,18 +2059,21 @@ def serve_phase(device, trace: bool = False, arch: str = LM_ARCH) -> dict:
 
 
 def train_launches():
-    """Forward and backward launches of the training path's kernels."""
+    """Forward, backward and optimizer launches of the training path's
+    kernels."""
     return {"rmsnorm": rms.rmsnorm.launches,
             "rmsnorm_bwd": rms.rmsnorm_bwd.launches,
             "flash_attention": fa.flash_attention.launches,
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "moe_gmm": gmm.moe_gmm.launches,
-            "moe_gmm_bwd": gmm.moe_gmm_bwd.launches}
+            "moe_gmm_bwd": gmm.moe_gmm_bwd.launches,
+            "adamw": aw.adamw_update.launches}
 
 
 def zero_train_launches():
     for f in (rms.rmsnorm, rms.rmsnorm_bwd, fa.flash_attention,
-              fa.flash_attention_bwd, gmm.moe_gmm, gmm.moe_gmm_bwd):
+              fa.flash_attention_bwd, gmm.moe_gmm, gmm.moe_gmm_bwd,
+              aw.adamw_update):
         f.launches = 0
 
 
@@ -2360,6 +2372,106 @@ def bwd_kernel_phase(device) -> dict:
     return rows
 
 
+def adamw_phase(device) -> dict:
+    """AdamW's update kernel (``adamw.adamw_update``) against its plain
+    version, the eager loop (``ref.adamw_update``), over every parameter
+    of each of ``ADAMW_ARCHS`` at full width cut to 2 layers (the shapes
+    ``granite_steps`` trains), in float32 and in bfloat16 with float32
+    moments: two steps, clipped by the gradients' global norm, bit for bit
+    the loop's (``torch.equal`` on p, m and v, copies of the same card
+    tensors), one launch a step; then timed in turns beside the loop and
+    PyTorch's fused AdamW (``torch._fused_adamw_``, which decays every
+    tensor; timed for comparison, never called by the port; "not timed"
+    where it refuses bfloat16 parameters with float32 moments). The bound
+    is ``adamw.cost``'s bytes (28 an element in float32, 22 in bfloat16)
+    at the card's bandwidth."""
+    ocfg = opt.AdamWConfig()
+    hyper = (ocfg.b1, ocfg.b2, ocfg.eps, ocfg.weight_decay)
+    rows = {}
+    for arch in ADAMW_ARCHS:
+        model = tf.init_model(served_config(arch, num_layers=2), None,
+                              "meta", trainable=True)
+        named = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+        mask = model.decay_mask()
+        decay = [mask[n] for n, _ in named]
+        del model
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=device).manual_seed(0)
+
+            def draw(shape, sd, dtype=torch.float32):
+                return (sd * torch.randn(shape, generator=gen,
+                                         device=device)).to(dtype)
+            p = [draw(s, 0.02, dt) for _, s in named]
+            g = [draw(s, 1e-2, dt) for _, s in named]
+            m = [torch.zeros(s, device=device) for _, s in named]
+            v = [torch.zeros(s, device=device) for _, s in named]
+            n = sum(t.numel() for t in p)
+            scale = torch.clamp(ocfg.clip_norm / (opt.global_norm(
+                dict(enumerate(g))) + 1e-9), max=1.0)
+            plain = [[t.clone() for t in ts] for ts in (p, m, v)]
+            before = aw.adamw_update.launches
+            for step in (1, 2):
+                sc = (opt.schedule(ocfg, step),
+                      1 - opt._f32(ocfg.b1) ** step,
+                      1 - opt._f32(ocfg.b2) ** step)
+                aw.adamw_update(p, g, m, v, decay, scale, *sc, *hyper)
+                ref.adamw_update(plain[0], g, plain[1], plain[2], decay,
+                                 scale, *sc, *hyper)
+            launched = aw.adamw_update.launches - before
+            differ = [f"{what} {name}" for what, got, want in
+                      zip("pmv", (p, m, v), plain)
+                      for (name, _), a, b in zip(named, got, want)
+                      if not torch.equal(a, b)]
+            del plain
+            label = f"{arch} 2 layers {str(dt)[6:]}"
+            check(not differ and launched == 2,
+                  f"adamw {label}: {launched} launches for 2 steps; not the "
+                  f"loop's bits: {differ[:8]} ({len(differ)} in all)")
+            sc = (opt.schedule(ocfg, 2), 1 - opt._f32(ocfg.b1) ** 2,
+                  1 - opt._f32(ocfg.b2) ** 2)
+            fns = {"kernel": lambda: aw.adamw_update(p, g, m, v, decay,
+                                                     scale, *sc, *hyper),
+                   "plain": lambda: ref.adamw_update(p, g, m, v, decay,
+                                                     scale, *sc, *hyper)}
+            steps_t = [torch.full((), 2.0, device=device) for _ in p]
+
+            def library():
+                torch._fused_adamw_(
+                    p, g, m, v, [], steps_t, lr=float(sc[0]),
+                    beta1=ocfg.b1, beta2=ocfg.b2,
+                    weight_decay=ocfg.weight_decay, eps=ocfg.eps,
+                    amsgrad=False, maximize=False)
+            try:
+                library()
+                fns["library"] = library
+            except (RuntimeError, TypeError) as e:
+                print(f"adamw {label}: torch._fused_adamw_ not timed "
+                      f"({str(e).splitlines()[0][:160]})")
+            t = {k: [] for k in fns}
+            for k in ("plain", "kernel", "library", "library", "kernel",
+                      "plain"):
+                if k in fns:
+                    t[k].append(time_ms(fns[k], iters=10, warmup=2,
+                                        lead_cycles=LEAD_CYCLES))
+            t = {k: float(np.mean(x)) for k, x in t.items()}
+            bound, by = _bound(*aw.cost(p, decay), torch.float32)
+            row = {"max_abs_err": 0.0, "ms": t["kernel"],
+                   "plain_ms": t["plain"], "library_ms": t.get("library"),
+                   "bound_ms": bound, "bound_by": by, "tensors": len(p),
+                   "elements": n, "launches_a_step": launched // 2}
+            rows[label] = row
+            print(f"adamw {label} ({len(p)} tensors, {n} elements): 2 steps "
+                  f"bit for bit the loop's, one launch a step; kernel "
+                  f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                  f"library " + (f"{row['library_ms']:.4f} ms" if
+                                 "library" in t else "not timed") +
+                  f"  bound {bound:.4f} ms ({by})  share of bound "
+                  f"{bound / row['ms']:.3f}")
+            del p, g, m, v, fns, steps_t
+            free_memory()
+    return rows
+
+
 def _loss_and_grads(model, batch):
     for p in model.parameters():
         p.grad = None
@@ -2397,7 +2509,10 @@ def train_parity_phase(device) -> dict:
         zero_train_launches()
         with ctx, recorded_routes(log, label), steps.deterministic():
             loss, grads = _loss_and_grads(model, batch)
-        runs[path] = (loss, grads, log, train_launches())
+        # the loss and its gradients: no optimizer step, no adamw launch
+        runs[path] = (loss, grads, log, {k: v for k, v in
+                                         train_launches().items()
+                                         if k != "adamw"})
     (lk, gk, rk, nk), (lp, gp, rp, np_) = runs["kernel"], runs["plain"]
     check(all(nk[k] for k in nk) and not any(np_.values()),
           f"launches: kernel path {nk}, plain path {np_}")
@@ -3724,6 +3839,10 @@ BWD_LINES = (   # (name, source, the forward it differentiates, label)
      "C=1024 1536->512 bfloat16"))
 
 
+# adamw's entry of the kernels line: granite's trained parameters
+ADAMW_LINE = f"{TRAIN_ARCH} 2 layers float32"
+
+
 def bwd_line(name, source, forward, label, rows, launches) -> dict:
     """A backward kernel's entry of the ``kernels`` line, as ``lm_line``:
     its row at ``label`` (granite's training shape, bf16), the largest
@@ -3902,6 +4021,7 @@ def main() -> int:
     # and xlstm-125m's resume
     mark("prefixes and head shapes")
     bwd_rows = bwd_kernel_phase(device)
+    adamw_rows = adamw_phase(device)
     same_step_bits(early_bits, step_bits_phase(device))
     del early_bits
     learn_phase(device)
@@ -3996,7 +4116,14 @@ def main() -> int:
             "launches": fleet["fleet_launches"]["scorer_head_grouped"]}}] +
         [bwd_line(name, src, fwd, label, bwd_rows,
                   training["launches"][name])
-         for name, src, fwd, label in BWD_LINES]}))
+         for name, src, fwd, label in BWD_LINES] + [{
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none (jnp elementwise code that XLA fuses, "
+                    "src/repro/train/optimizer.py:59)",
+        "launches": training["launches"]["adamw"],
+        "shape": ADAMW_LINE, **adamw_rows[ADAMW_LINE],
+        "rows": adamw_rows}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

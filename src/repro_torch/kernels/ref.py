@@ -10,7 +10,7 @@ package's references.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -239,3 +239,31 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     dx = torch.einsum("ecf,edf->ecd", dy.float(), w.float()).to(x.dtype)
     dw = torch.einsum("ecd,ecf->edf", x.float(), dy.float()).to(w.dtype)
     return dx, dw
+
+
+@torch.no_grad()
+def adamw_update(params: Sequence[torch.Tensor],
+                 grads: Sequence[torch.Tensor], m: Sequence[torch.Tensor],
+                 v: Sequence[torch.Tensor], decay: Sequence[bool],
+                 scale: torch.Tensor, lr: torch.Tensor, b1c: torch.Tensor,
+                 b2c: torch.Tensor, b1: float, b2: float, eps: float,
+                 wd: float) -> None:
+    """AdamW's update, one parameter at a time in eager float32 ops, in
+    place: each gradient times the clip factor ``scale`` (0-d, on the
+    gradients' device), m and v updated, the bias-corrected step with
+    ``eps`` outside the square root, the decoupled decay where ``decay``
+    marks it, and the parameter rewritten in its own type. ``lr``,
+    ``b1c`` and ``b2c``: 0-d float32 host tensors, copied to the
+    gradients' device. Float32 temporaries are one parameter's size.
+    The plain version of ``kernels/adamw.py``'s kernel."""
+    dev = scale.device
+    lr_d, b1c, b2c = (t.to(dev) for t in (lr, b1c, b2c))
+    for p, g, m_, v_, d in zip(params, grads, m, v, decay):
+        g = g.float() * scale
+        m_.mul_(b1).add_((1 - b1) * g)
+        v_.mul_(b2).add_((1 - b2) * g.square())
+        delta = (m_ / b1c) / (torch.sqrt(v_ / b2c) + eps)
+        if d:
+            delta = delta + wd * p.float()
+        p.copy_((p.float() - lr_d * delta).to(p.dtype))
+        del g, delta

@@ -9,8 +9,11 @@ parameters, gradients and moments are dicts keyed by the model's
 in the parameters' order. It is not ``torch.optim.AdamW``, which decays
 every tensor: here only those ``decay`` marks (by default the tensors of
 two or more dimensions, the JAX package's rule; a model passes its own
-``decay_mask``). The update runs one parameter at a time, so the float32
-temporaries are one parameter's size, not the model's. Under a mesh
+``decay_mask``). The update is ``kernels/adamw.adamw_update``: on the
+card one hand-written launch over every parameter, which takes the
+step's scalars by value (so the host does not wait for the card), with
+the bits of the plain loop a parameter at a time that the CPU runs
+(``kernels/ref.adamw_update``). Under a mesh
 (``split``: the model's ``split_axes()``) the global norm sums each
 slice's squares, then sums them over the ranks that split them, in
 rank order: over the data axis (``parallel/ops.data_sum``) for the
@@ -31,6 +34,7 @@ from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import adamw
 from repro_torch.parallel import ops as pops
 
 Tree = Dict[str, torch.Tensor]
@@ -113,24 +117,21 @@ def apply_updates(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     overwritten. Returns (params, the new state, metrics ``grad_norm``
     and ``lr``). ``decay``: which parameters take the decoupled decay
     (default: those of two or more dimensions); ``split``: the axes that
-    split each over the installed mesh (``global_norm``)."""
+    split each over the installed mesh (``global_norm``). The update is
+    ``kernels/adamw.adamw_update``: on the card one launch over every
+    parameter, on the CPU the plain loop."""
     step = state.step + 1
     gn = global_norm(grads, split)
-    dev = gn.device
     scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
     lr = schedule(cfg, step)
-    # the step's scalars, float32, on the gradients' device once
-    lr_d, b1c, b2c = (t.to(dev) for t in (
-        lr, 1 - _f32(cfg.b1) ** step, 1 - _f32(cfg.b2) ** step))
-    for n, p in params.items():
-        g = grads[n].float() * scale
-        m, v = state.m[n], state.v[n]
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if (p.dim() >= 2) if decay is None else decay[n]:
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr_d * delta).to(p.dtype))
-        del g, delta
+    names = list(params)
+    ps = [params[n] for n in names]
+    adamw.adamw_update(
+        ps, [grads[n] for n in names], [state.m[n] for n in names],
+        [state.v[n] for n in names],
+        [(p.dim() >= 2) if decay is None else decay[n]
+         for n, p in zip(names, ps)],
+        scale, lr, 1 - _f32(cfg.b1) ** step, 1 - _f32(cfg.b2) ** step,
+        cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
     return params, OptState(step, state.m, state.v), \
         {"grad_norm": gn, "lr": lr}

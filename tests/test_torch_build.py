@@ -72,16 +72,16 @@ def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
     assert all(after[n].name.startswith(f"lib{n}_") for n in after)
 
 
-# every kernel the port builds: the five TPU kernels' counterparts and
-# the scorer's dense and head layers
+# every kernel the port builds: the five TPU kernels' counterparts, the
+# scorer's dense and head layers, flash backward and AdamW's update
 SOURCES = ("conv_scorer", "rmsnorm", "flash_attention", "decode_attention",
-           "moe_gmm", "scorer_head", "flash_attention_bwd")
+           "moe_gmm", "scorer_head", "flash_attention_bwd", "adamw")
 
 
 @pytest.mark.parametrize("name", SOURCES)
 def test_each_kernel_source_has_its_own_build(name):
     """Each source builds into its own library under ``BUILD_DIR``, named
-    after it and keyed by its text: the seven keys differ."""
+    after it and keyed by its text: the eight keys differ."""
     assert build.source(name).exists()
     path = build.library_path(name)
     assert path.parent == build.BUILD_DIR

@@ -37,6 +37,7 @@ torch = pytest.importorskip("torch")
 
 from _torch_dp_worker import spawn  # noqa: E402
 from repro_torch.configs import base as cfgbase  # noqa: E402
+from repro_torch.kernels import adamw  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_dryrun_mesh  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -64,16 +65,26 @@ def test_split_products_are_a_sixteenth_of_the_card_count(kind):
     cell = _cell(kind, 256)
     pod = dryrun.device_view(make_dryrun_mesh("pod"))
     # the view takes its device's 2 rows of the data ranks' together
-    split, _, _ = dryrun.count_step(cfg, cell, 2 * pod.processes, "meta",
-                                    pod)
-    whole, _, _ = dryrun.count_step(cfg, cell, 2, "meta")
+    split, _, part = dryrun.count_step(cfg, cell, 2 * pod.processes, "meta",
+                                       pod)
+    whole, _, model = dryrun.count_step(cfg, cell, 2, "meta")
     got, want = _mm_and_kernels(split), _mm_and_kernels(whole)
     assert set(got) == set(want) and got["mm"] > 0
     for k, v in want.items():
         if k == "rmsnorm" or k == "rmsnorm_bwd":
             assert got[k] == v, k                # the norms are replicated
+        elif k == "adamw":
+            # the update of the parameters the device holds: sliced over
+            # "data" too, and the norms' scales not over "model"
+            assert (got[k], v) == (_adamw_flops(part), _adamw_flops(model))
         else:
             assert got[k] * M == v, (k, got[k], v)
+
+
+def _adamw_flops(model) -> int:
+    params = dict(model.named_parameters())
+    mask = model.decay_mask()
+    return adamw.cost(list(params.values()), [mask[n] for n in params])[0]
 
 
 def test_prefill_gathers_follow_the_placement():
